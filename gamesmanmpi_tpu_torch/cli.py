@@ -1,0 +1,129 @@
+"""Command line of the torch port: the `solve` subcommand.
+
+    gamesman-solve-torch solve GAME [--engine auto|dense|classic]
+                         [--device cuda|cpu] [--no-tables] [--query POS]...
+    python -m gamesmanmpi_tpu_torch.cli solve connect4:w=5,h=5
+
+It prints the reference CLI's rank-0 block (gamesmanmpi_tpu/cli.py
+`_report`): game, devices, positions, value, remoteness, elapsed,
+throughput, and one line per --query. The solve runs on the card unless
+--device cpu is given; without a card it exits 2 with a message.
+
+Ported so far: the dense Connect-4 engine (the reference's --engine auto
+pick on an accelerator). --engine classic, and games the dense engine
+cannot take, exit 2 with a "not yet ported (ROADMAP Queue 1)" error.
+
+It returns 0 once solved, and 2 on a usage error, an unknown or
+not-yet-ported game or engine, or a missing CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Optional
+
+from gamesmanmpi_tpu_torch.core.values import value_name
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="gamesman-solve-torch",
+        description="Strong solver for two-player games (PyTorch/CUDA port)",
+    )
+    sub = p.add_subparsers(dest="command", required=True)
+    s = sub.add_parser("solve", help="solve a game and print the root block")
+    s.add_argument("game", help="game spec, e.g. connect4:w=5,h=5")
+    s.add_argument(
+        "--engine", choices=("auto", "dense", "classic"), default="auto",
+        help="'dense' = class-partitioned perfect-indexing engine "
+        "(Connect-4 family, sym=0); 'auto' picks it when eligible; "
+        "'classic' (level-BFS) is not yet ported")
+    s.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="where the solve runs (default: the card)")
+    s.add_argument(
+        "--no-tables", action="store_true",
+        help="keep only the root on the host (queries then answer "
+        "'not reachable')")
+    s.add_argument(
+        "--query", action="append", default=None, metavar="POS",
+        help="after solving, print the value/remoteness of this packed "
+        "position (decimal or 0x-hex; repeatable)")
+    return p
+
+
+def _report(result, devices: int, elapsed: float, args) -> None:
+    """The rank-0 output block, line for line the reference's."""
+    print(f"game: {result.game.name}")
+    print(f"devices: {devices}")
+    print(f"positions: {result.num_positions}")
+    print(f"value: {value_name(result.value)}")
+    print(f"remoteness: {result.remoteness}")
+    print(f"elapsed: {elapsed:.3f}s")
+    print(
+        f"throughput: {result.stats['positions_per_sec']:.0f} positions/sec"
+    )
+    for q in args.query or ():
+        try:
+            state = int(q, 0)
+            try:
+                value, rem = result.lookup(state)
+            except KeyError:
+                print(f"query {q}: not reachable")
+                continue
+            print(f"query {q}: value={value_name(value)} remoteness={rem}")
+        except (ValueError, OverflowError) as e:
+            print(f"query {q}: invalid position ({e})")
+
+
+def _error(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return 2
+
+
+def solve_main(argv=None) -> tuple[int, Optional[object]]:
+    """main() that also hands back the solve result (None on error)."""
+    from gamesmanmpi_tpu_torch.games import Connect4, NotPortedError, get_game
+    from gamesmanmpi_tpu_torch.utils.device import (
+        DeviceUnavailable,
+        resolve_device,
+    )
+
+    args = build_parser().parse_args(
+        list(sys.argv[1:] if argv is None else argv))
+    t0 = time.perf_counter()
+    try:
+        game = get_game(args.game)
+    except NotPortedError as e:
+        return _error(str(e)), None
+    except (KeyError, ValueError) as e:
+        return _error(f"bad game spec {args.game!r}: {e}"), None
+    if args.engine == "classic":
+        return _error("--engine classic (level-BFS) is not yet ported to "
+                      "the torch package (ROADMAP Queue 1)"), None
+    if not isinstance(game, Connect4) or game.sym:
+        return _error(
+            f"{game.name} needs the classic engine, which is not yet "
+            "ported to the torch package (ROADMAP Queue 1); the dense "
+            "engine takes Connect-4 games with sym=0"), None
+    try:
+        device = resolve_device(args.device)
+    except DeviceUnavailable as e:
+        return _error(str(e)), None
+
+    from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
+
+    solver = DenseSolver(game, store_tables=not args.no_tables, device=device)
+    result = solver.solve()
+    _report(result, 1, time.perf_counter() - t0, args)
+    return 0, result
+
+
+def main(argv=None) -> int:
+    return solve_main(argv)[0]
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,143 @@
+"""The torch port as a package: its CLI against the JAX CLI, its import
+boundary, its device policy, its kernel build and chip_smoke.py's refusal
+to run without a card."""
+
+import io
+import os
+import shutil
+import subprocess
+import sys
+from contextlib import redirect_stdout
+
+import pytest
+import torch
+
+from gamesmanmpi_tpu import cli as jax_cli
+from gamesmanmpi_tpu_torch import cli
+from gamesmanmpi_tpu_torch.games import Connect4, NotPortedError, get_game
+from gamesmanmpi_tpu_torch.kernels import build
+from gamesmanmpi_tpu_torch.utils.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: initial position, one drop in column 0, a garbage position (both
+#: players have a column of three), no guard bits, not a number.
+QUERIES = ["0x111", "0x112", "0x18F", "0", "zz"]
+
+
+def _run(main, argv):
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def _report_lines(lines):
+    keep = ("game:", "devices:", "positions:", "value:", "remoteness:",
+            "query ")
+    return [ln for ln in lines if ln.startswith(keep)]
+
+
+@pytest.mark.parametrize("spec", ["connect4:w=3,h=3,connect=3",
+                                  "connect4:w=3,h=4,connect=3"])
+def test_report_matches_reference_cli(spec):
+    qargs = [a for q in QUERIES for a in ("--query", q)]
+    rc_j, ref = _run(jax_cli.main, ["solve", spec, "--engine", "dense",
+                                    *qargs])
+    rc_t, got = _run(cli.main, ["solve", spec, "--device", "cpu", *qargs])
+    assert rc_j == rc_t == 0
+    assert _report_lines(got) == _report_lines(ref)
+    assert len(_report_lines(got)) == 5 + len(QUERIES)
+    assert [ln.split(":")[0] for ln in got[5:7]] == ["elapsed", "throughput"]
+
+
+def test_import_and_cpu_solve_leave_jax_out():
+    code = (
+        "import sys\n"
+        "import gamesmanmpi_tpu_torch\n"
+        "from gamesmanmpi_tpu_torch.cli import main\n"
+        "assert main(['solve', 'connect4:w=3,h=3,connect=3',"
+        " '--device', 'cpu']) == 0\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'gamesmanmpi_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "positions: 694" in proc.stdout
+    assert proc.stdout.strip().endswith("clean")
+
+
+def test_default_device_is_the_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["solve", "connect4:w=3,h=3,connect=3"]) == 2
+    captured = capsys.readouterr()
+    assert "torch.cuda.is_available() is false" in captured.err
+    assert "positions:" not in captured.out
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["solve", "nim"], "not yet ported"),
+    (["solve", "tictactoe"], "not yet ported"),
+    (["solve", "examples/specs/tictactoe_3x3.json"], "not yet ported"),
+    (["solve", "connect4:w=3,h=3,connect=3", "--engine", "classic",
+      "--device", "cpu"], "not yet ported"),
+    (["solve", "connect4:w=3,h=3,sym=1", "--device", "cpu"],
+     "not yet ported"),
+    (["solve", "nosuchgame"], "bad game spec"),
+    (["solve", "connect4:w=3,h=3,sym=maybe"], "bad game spec"),
+])
+def test_unported_and_bad_specs_exit_2(argv, needle, capsys):
+    assert cli.main(argv) == 2
+    assert needle in capsys.readouterr().err
+
+
+def test_get_game_grammar():
+    g = get_game("c4:width=5,height=4,k=3")
+    assert isinstance(g, Connect4)
+    assert (g.width, g.height, g.connect, g.name) == (5, 4, 3,
+                                                      "connect3_5x4")
+    assert get_game("connect4").name == "connect4_7x6"
+    assert get_game("connect4:w=4,h=4,sym=1").sym
+    with pytest.raises(NotPortedError):
+        get_game("chomp:w=3,h=3")
+    with pytest.raises(ValueError):
+        get_game("connect4:w=9,h=7")
+
+
+def test_kernel_build_is_keyed_and_local(monkeypatch, tmp_path):
+    path = build._library_path("window_gather")
+    assert path.parent == build.BUILD_DIR
+    assert build.BUILD_DIR.relative_to(REPO).as_posix() == "build/torch_ext"
+    assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert path.name.startswith("window_gather_") and path.suffix == ".so"
+    # The name hashes the source and flags: a different flag set is a
+    # different library, so an edited build never loads a stale one.
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    assert build._library_path("window_gather") != path
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build._nvcc()
+    with pytest.raises(RuntimeError, match="error code 2"):
+        build.check("monotone_window_gather", 2)
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; chip_smoke.py would run")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    # Alone in a directory, without the rest of the repository.
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
