@@ -1,20 +1,25 @@
 """Command line of the torch port: the `solve` subcommand.
 
     gamesman-solve-torch solve GAME [--engine auto|dense|classic]
-                         [--device cuda|cpu] [--no-tables] [--query POS]...
+                         [--device cuda|cpu] [--no-tables] [--paranoid]
+                         [--table-out PATH] [--query POS]...
     python -m gamesmanmpi_tpu_torch.cli solve connect4:w=5,h=5
 
 It prints the reference CLI's rank-0 block (gamesmanmpi_tpu/cli.py
 `_report`): game, devices, positions, value, remoteness, elapsed,
-throughput, and one line per --query. The solve runs on the card unless
---device cpu is given; without a card it exits 2 with a message.
+throughput, the table file, and one line per --query. The solve runs on
+the card unless --device cpu is given; without a card it exits 2 with a
+message.
 
-Ported so far: the dense Connect-4 engine (the reference's --engine auto
-pick on an accelerator). --engine classic, and games the dense engine
-cannot take, exit 2 with a "not yet ported (ROADMAP Queue 1)" error.
+Engines, routed as the reference routes one device: `dense` takes a
+Connect-4 board with sym=0 and no --paranoid/--table-out; `classic` (the
+level-BFS engine) takes every game; `auto` picks dense where it is
+eligible and the solve runs on the card, classic otherwise. GameSpec
+``.json`` files are not ported yet and exit 2.
 
 It returns 0 once solved, and 2 on a usage error, an unknown or
-not-yet-ported game or engine, or a missing CUDA device.
+not-yet-ported game, an engine the game cannot take, or a missing CUDA
+device.
 """
 
 from __future__ import annotations
@@ -37,9 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("game", help="game spec, e.g. connect4:w=5,h=5")
     s.add_argument(
         "--engine", choices=("auto", "dense", "classic"), default="auto",
-        help="'dense' = class-partitioned perfect-indexing engine "
-        "(Connect-4 family, sym=0); 'auto' picks it when eligible; "
-        "'classic' (level-BFS) is not yet ported")
+        help="'classic' = level-BFS engine (every game); 'dense' = "
+        "class-partitioned perfect-indexing engine (Connect-4 family, "
+        "sym=0); 'auto' picks dense when eligible on the card")
     s.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="where the solve runs (default: the card)")
@@ -47,6 +52,13 @@ def build_parser() -> argparse.ArgumentParser:
         "--no-tables", action="store_true",
         help="keep only the root on the host (queries then answer "
         "'not reachable')")
+    s.add_argument(
+        "--paranoid", action="store_true",
+        help="classic engine: sync and check each level's consistency "
+        "counter, raising on the first miss")
+    s.add_argument(
+        "--table-out", default=None, metavar="PATH",
+        help="dump the full solved table as .npz (packed cells per level)")
     s.add_argument(
         "--query", action="append", default=None, metavar="POS",
         help="after solving, print the value/remoteness of this packed "
@@ -65,6 +77,11 @@ def _report(result, devices: int, elapsed: float, args) -> None:
     print(
         f"throughput: {result.stats['positions_per_sec']:.0f} positions/sec"
     )
+    if args.table_out:
+        from gamesmanmpi_tpu_torch.utils.checkpoint import save_result_npz
+
+        save_result_npz(args.table_out, result)
+        print(f"table written: {args.table_out}")
     for q in args.query or ():
         try:
             state = int(q, 0)
@@ -100,22 +117,31 @@ def solve_main(argv=None) -> tuple[int, Optional[object]]:
         return _error(str(e)), None
     except (KeyError, ValueError) as e:
         return _error(f"bad game spec {args.game!r}: {e}"), None
-    if args.engine == "classic":
-        return _error("--engine classic (level-BFS) is not yet ported to "
-                      "the torch package (ROADMAP Queue 1)"), None
-    if not isinstance(game, Connect4) or game.sym:
+    dense_eligible = (isinstance(game, Connect4) and not game.sym
+                      and not args.paranoid and not args.table_out)
+    if args.engine == "dense" and not dense_eligible:
         return _error(
-            f"{game.name} needs the classic engine, which is not yet "
-            "ported to the torch package (ROADMAP Queue 1); the dense "
-            "engine takes Connect-4 games with sym=0"), None
+            "--engine dense needs a Connect-4-family game with sym=0 and "
+            "no --paranoid/--table-out (those live in the classic "
+            "engine)"), None
     try:
         device = resolve_device(args.device)
     except DeviceUnavailable as e:
         return _error(str(e)), None
 
-    from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
+    # Same platform policy as the reference: the dense engine is the
+    # accelerator's pick; on the CPU, auto runs the classic engine.
+    if args.engine == "dense" or (args.engine == "auto" and dense_eligible
+                                  and device.type == "cuda"):
+        from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
 
-    solver = DenseSolver(game, store_tables=not args.no_tables, device=device)
+        solver = DenseSolver(game, store_tables=not args.no_tables,
+                             device=device)
+    else:
+        from gamesmanmpi_tpu_torch.solve.engine import Solver
+
+        solver = Solver(game, device=device, paranoid=args.paranoid,
+                        store_tables=not args.no_tables)
     result = solver.solve()
     _report(result, 1, time.perf_counter() - t0, args)
     return 0, result

@@ -12,11 +12,19 @@ Contracts kept from the reference so game kernels stay branch-free:
     bool); lanes with mask False are ignored by the engine.
   - primitive returns uint8 values from the perspective of the player to
     move (WIN/LOSE/TIE/UNDECIDED), UNDECIDED meaning non-terminal.
+  - canonicalize maps a state to its symmetry-class representative
+    (identity unless the game opts in with ``sym=1``); it is a game
+    automorphism projection, so values are invariant within a class.
+
+The engine calls the kernels on real states only: levels run at their
+exact sizes, so no padding lane reaches a game.
 """
 
 from __future__ import annotations
 
 import abc
+
+from gamesmanmpi_tpu_torch.core.bitops import sentinel_for, state_dtype_for
 
 
 class TensorGame(abc.ABC):
@@ -26,14 +34,27 @@ class TensorGame(abc.ABC):
     name: str = "game"
     #: static maximum number of moves from any position
     max_moves: int
-    #: upper bound (exclusive) on level_of over reachable states
+    #: upper bound (exclusive) on level_of over reachable states; the
+    #: engine enforces it during forward discovery
     num_levels: int
     #: max of level_of(child) - level_of(parent) over all moves
     max_level_jump: int = 1
     #: bits a packed state occupies; at most 63 so int64 holds it exactly
     state_bits: int = 63
-    #: True when every move advances level_of by exactly 1
+    #: True when every move advances level_of by exactly 1 (the engine's
+    #: device-resident fast path)
     uniform_level_jump: bool = False
+
+    @property
+    def state_dtype(self):
+        """The reference's numpy dtype for a packed state (uint32/uint64):
+        the dtype of tables exchanged with it (core/bitops.to_reference)."""
+        return state_dtype_for(self.state_bits)
+
+    @property
+    def sentinel(self):
+        """The reference's padding sentinel in this game's state dtype."""
+        return sentinel_for(self.state_dtype)
 
     def canonicalize(self, states):
         """Symmetry-class representative of each state (identity here)."""

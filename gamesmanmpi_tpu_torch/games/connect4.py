@@ -11,7 +11,8 @@ A move in column c is branch-free: with g the column's guard bit,
     child = opponent_stones | (guards + g).
 The win test is the 4-direction bitboard fold {1, h, h+1, h+2} on the
 last mover's stones. Guards are found with the reference's masked
-down-smear (its default "bitboard" decompose).
+down-smear (its default "bitboard" decompose). With ``sym=1`` the
+left-right mirror canonicalizes (min of the state and its mirror).
 """
 
 from __future__ import annotations
@@ -58,6 +59,22 @@ class Connect4(TensorGame):
 
     def initial_state(self) -> int:
         return self._bottom_mask
+
+    def _mirror(self, states):
+        """Reflect the board left-right: column c <-> column w-1-c."""
+        h1 = self.height + 1
+        out = torch.zeros_like(states)
+        for c in range(self.width):
+            col = (states >> (c * h1)) & self._col_masks[0]
+            out = out | (col << ((self.width - 1 - c) * h1))
+        return out
+
+    def canonicalize(self, states):
+        """min(state, mirror) with sym=1: mirroring commutes with drops
+        and preserves wins, so this picks one representative per class."""
+        if not self.sym:
+            return states
+        return torch.minimum(states, self._mirror(states))
 
     def _decompose(self, states):
         """-> (guards, filled, current, opponent) int64 bitboards."""

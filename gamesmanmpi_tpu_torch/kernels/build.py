@@ -47,10 +47,15 @@ SOURCES: Dict[str, tuple] = {
         "window_gather_launch": (
             [_I, _I, _P, _LL, _P, _LL, _P, _P, _I, _I, _LL, _P], _I),
     }),
+    "double_u32": ("double_u32.cu", {
+        "double_u32_launch": ([_P, _P, _LL, _P], _I),
+    }),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: nvcc's -Xptxas=-v report per library (registers, shared memory, spills).
+#: nvcc's -Xptxas=-v report per library (registers, shared memory, spills),
+#: from the build or, for a cached library, from the report file the
+#: build left beside it.
 PTXAS_REPORT: Dict[str, str] = {}
 
 
@@ -74,9 +79,17 @@ def _library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
+def _report_path(library: pathlib.Path) -> pathlib.Path:
+    """`<name>_<hash>.ptxas.txt` beside `<name>_<hash>.so`."""
+    return library.with_suffix(".ptxas.txt")
+
+
 def _compile(name: str) -> pathlib.Path:
     out = _library_path(name)
+    report = _report_path(out)
     if out.exists():
+        if report.exists():
+            PTXAS_REPORT[name] = report.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -87,6 +100,11 @@ def _compile(name: str) -> pathlib.Path:
             f"nvcc failed for {name} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     PTXAS_REPORT[name] = (proc.stdout + proc.stderr).strip()
+    # The report goes down before the library, so a library that exists
+    # always has its report beside it.
+    report_tmp = report.with_suffix(f".{os.getpid()}.tmp")
+    report_tmp.write_text(PTXAS_REPORT[name])
+    os.replace(report_tmp, report)
     os.replace(tmp, out)
     return out
 

@@ -1,6 +1,6 @@
 """Tests of the torch port that need an NVIDIA card.
 
-The CUDA kernel has no CPU mode, so these are marked `cuda` and skip when
+The CUDA kernels have no CPU mode, so these are marked `cuda` and skip when
 torch.cuda.is_available() is false. They import nothing of JAX, so they
 run on a machine with the card and without JAX; there, skip the repo's
 conftest (it selects the JAX platform):
@@ -17,7 +17,9 @@ import torch
 from gamesmanmpi_tpu_torch import kernels
 from gamesmanmpi_tpu_torch.games import get_game
 from gamesmanmpi_tpu_torch.ops import window_gather as port
+from gamesmanmpi_tpu_torch.ops.elementwise import double_u32, double_u32_ref
 from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
+from gamesmanmpi_tpu_torch.solve.engine import Solver
 
 pytestmark = pytest.mark.cuda
 
@@ -63,3 +65,37 @@ def test_dense_solve_on_card_matches_cpu():
         cpu.value, cpu.remoteness, cpu.num_positions)
     for L, cells in cpu.cells.items():
         np.testing.assert_array_equal(card.cells[L], cells)
+
+
+@pytest.mark.parametrize("n", [1, 3, 1023, 1 << 20, (1 << 20) + 1])
+def test_double_u32_kernel_matches_plain_version(n):
+    _need_card()
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, 1 << 32, size=n + 1, dtype=np.uint64).astype(np.uint32)
+    x[:2] = [(1 << 32) - 1, 1 << 31]
+    t = torch.from_numpy(x.view(np.int32)).cuda().view(torch.uint32)
+    for view in (t[:n], t[1:]):  # aligned, and one element in (scalar path)
+        before = kernels.LAUNCHES["double_u32"]
+        out = double_u32(view)
+        ref = double_u32_ref(view)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["double_u32"] == before + 1
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("spec", ["tictactoe:sym=1", "nim:heaps=3-4-5",
+                                  "connect4:w=4,h=4,sym=1"])
+@pytest.mark.parametrize("provenance", [True, False])
+def test_classic_solve_on_card_matches_cpu(spec, provenance):
+    _need_card()
+    card = Solver(get_game(spec), use_provenance=provenance).solve()
+    cpu = Solver(get_game(spec), device="cpu",
+                 use_provenance=provenance).solve()
+    assert (card.value, card.remoteness, card.num_positions) == (
+        cpu.value, cpu.remoteness, cpu.num_positions)
+    assert card.stats["misses"] == 0 and card.stats["peak_mem_bytes"] > 0
+    assert sorted(card.levels) == sorted(cpu.levels)
+    for k, t in cpu.levels.items():
+        for field in ("states", "values", "remoteness"):
+            np.testing.assert_array_equal(getattr(card.levels[k], field),
+                                          getattr(t, field))

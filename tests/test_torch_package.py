@@ -38,13 +38,15 @@ def _report_lines(lines):
     return [ln for ln in lines if ln.startswith(keep)]
 
 
+@pytest.mark.parametrize("engine", ["dense", "classic"])
 @pytest.mark.parametrize("spec", ["connect4:w=3,h=3,connect=3",
                                   "connect4:w=3,h=4,connect=3"])
-def test_report_matches_reference_cli(spec):
+def test_report_matches_reference_cli(spec, engine):
     qargs = [a for q in QUERIES for a in ("--query", q)]
-    rc_j, ref = _run(jax_cli.main, ["solve", spec, "--engine", "dense",
+    rc_j, ref = _run(jax_cli.main, ["solve", spec, "--engine", engine,
                                     *qargs])
-    rc_t, got = _run(cli.main, ["solve", spec, "--device", "cpu", *qargs])
+    rc_t, got = _run(cli.main, ["solve", spec, "--device", "cpu",
+                                "--engine", engine, *qargs])
     assert rc_j == rc_t == 0
     assert _report_lines(got) == _report_lines(ref)
     assert len(_report_lines(got)) == 5 + len(QUERIES)
@@ -57,7 +59,9 @@ def test_import_and_cpu_solve_leave_jax_out():
         "import gamesmanmpi_tpu_torch\n"
         "from gamesmanmpi_tpu_torch.cli import main\n"
         "assert main(['solve', 'connect4:w=3,h=3,connect=3',"
-        " '--device', 'cpu']) == 0\n"
+        " '--device', 'cpu', '--engine', 'dense']) == 0\n"
+        "assert main(['solve', 'nim:heaps=3-4-5', '--device', 'cpu']) == 0\n"
+        "import gamesmanmpi_tpu_torch.bench.microbench2\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'gamesmanmpi_tpu'))\n"
@@ -68,6 +72,7 @@ def test_import_and_cpu_solve_leave_jax_out():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "positions: 694" in proc.stdout
+    assert "positions: 120" in proc.stdout  # the classic engine's nim
     assert proc.stdout.strip().endswith("clean")
 
 
@@ -81,19 +86,32 @@ def test_default_device_is_the_card(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["solve", "nim"], "not yet ported"),
-    (["solve", "tictactoe"], "not yet ported"),
     (["solve", "examples/specs/tictactoe_3x3.json"], "not yet ported"),
-    (["solve", "connect4:w=3,h=3,connect=3", "--engine", "classic",
-      "--device", "cpu"], "not yet ported"),
-    (["solve", "connect4:w=3,h=3,sym=1", "--device", "cpu"],
-     "not yet ported"),
     (["solve", "nosuchgame"], "bad game spec"),
     (["solve", "connect4:w=3,h=3,sym=maybe"], "bad game spec"),
+    (["solve", "chomp:w=4,h=3,sym=1", "--device", "cpu"], "square board"),
 ])
 def test_unported_and_bad_specs_exit_2(argv, needle, capsys):
     assert cli.main(argv) == 2
     assert needle in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,answer", [
+    (["solve", "nim", "--device", "cpu"], ("WIN", 11, 120)),
+    (["solve", "tictactoe", "--device", "cpu"], ("TIE", 9, 5478)),
+    (["solve", "connect4:w=3,h=3,connect=3", "--engine", "classic",
+      "--device", "cpu"], ("TIE", 9, 694)),
+    (["solve", "connect4:w=3,h=3,sym=1", "--device", "cpu"],
+     ("TIE", 9, 452)),
+])
+def test_formerly_unported_games_solve(argv, answer, capsys):
+    """The classic engine's slice: what exited 2 as "not yet ported"
+    before now solves, with the reference's known answers."""
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out.splitlines()
+    value, rem, positions = answer
+    assert f"value: {value}" in out and f"remoteness: {rem}" in out
+    assert f"positions: {positions}" in out
 
 
 def test_get_game_grammar():
@@ -104,7 +122,7 @@ def test_get_game_grammar():
     assert get_game("connect4").name == "connect4_7x6"
     assert get_game("connect4:w=4,h=4,sym=1").sym
     with pytest.raises(NotPortedError):
-        get_game("chomp:w=3,h=3")
+        get_game("examples/specs/gomoku_4x3x3.json")
     with pytest.raises(ValueError):
         get_game("connect4:w=9,h=7")
 
@@ -126,6 +144,30 @@ def test_kernel_build_is_keyed_and_local(monkeypatch, tmp_path):
             build._nvcc()
     with pytest.raises(RuntimeError, match="error code 2"):
         build.check("monotone_window_gather", 2)
+
+
+def test_cached_build_reports_ptxas(monkeypatch, tmp_path):
+    """A library already built (here: a fake file) is not rebuilt, and
+    its ptxas report comes from the file the build left beside it."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "PTXAS_REPORT", {})
+    monkeypatch.setattr(build, "_nvcc", lambda: pytest.fail("nvcc ran"))
+    for name in build.SOURCES:
+        lib = build._library_path(name)
+        assert lib.parent == tmp_path
+        lib.write_bytes(b"not a real library")
+        report = build._report_path(lib)
+        assert report.name == lib.name[:-len(".so")] + ".ptxas.txt"
+        report.write_text(f"ptxas info    : Used 9 registers ({name})")
+    libs = build.build_all()
+    assert set(libs) == set(build.SOURCES) == {"window_gather", "double_u32"}
+    for name in build.SOURCES:
+        assert build.PTXAS_REPORT[name].endswith(f"registers ({name})")
+    # No report file beside a library: nothing to report, no rebuild.
+    build._report_path(build._library_path("double_u32")).unlink()
+    monkeypatch.setattr(build, "PTXAS_REPORT", {})
+    build.build_all()
+    assert set(build.PTXAS_REPORT) == {"window_gather"}
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
