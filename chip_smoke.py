@@ -8,17 +8,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2. build   — nvcc builds every kernel from kernels/csrc, one nvcc per
              source, all started together (timed, with each kernel's
              ptxas register/shared-memory/spill report).
-3. kernel monotone_window_gather — the CUDA kernel against its plain
-             PyTorch version on the card: u8/u32 tables, int32/int64
-             indices, all-hit and missing index vectors, ragged lengths;
-             `out` bit-identical and `nmiss` equal. Then timed on a
-             64M-index u8 gather from a 32M table beside the plain version,
-             `table[idx]`, and the byte bound.
-4. kernel double_u32 — the CUDA kernel bit-identical to its plain version
-             at N in {1, 3, 1023, 1M, 1M+1, 32M} (seeded values with 0,
-             2^31, 2^31+5 and 2^32-1 at both ends), on aligned tensors and
-             on views one element in (the scalar path). Then timed at 32M
-             beside the plain version, the library call and the byte bound.
+3. kernel monotone_window_gather — both designs of the CUDA kernel
+             (direct and staged table reads) against the plain PyTorch
+             version on the card: u8/u32 tables, int32/int64 indices,
+             all-hit and missing index vectors, ragged lengths; `out`
+             bit-identical and `nmiss` equal. Then at each shape of
+             bench/kernel_cases.GATHER_SHAPES (the dense 5x5 backward's
+             largest launch, microbench section 7b, 64M into 32M u8): both
+             designs bit-identical, and the default design, `table[idx]`
+             and the plain version timed in turns (medians of 10 samples
+             over 5 rounds), beside the byte bound.
+4. kernel double_u32 — every design of the CUDA kernel (blocked, stream,
+             bulk) bit-identical to the plain version at N in {1, 3, 1023, 1M,
+             1M+1, 32M} (seeded values with 0, 2^31, 2^31+5 and 2^32-1 at
+             both ends), on aligned tensors and on views one element in
+             (the scalar path). Then at 32M the default design, the
+             library call and the plain version timed in turns, beside the
+             byte bound.
 5. dense 4x4 — window-kernel and plain-gather solves on the card give
              byte-identical cells and 161,029 positions; 5x4 gives
              3,945,711 positions, TIE, remoteness 20; 3x4 connect-3 on the
@@ -55,7 +61,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
-import subprocess
+import re
 import sys
 import time
 
@@ -66,49 +72,51 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
+def ptxas_summary(report: str) -> dict:
+    """Kernel entry function (mangled) -> its registers and spills, from
+    nvcc's -Xptxas=-v report."""
+    out, fn, spill = {}, None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spill = m.group(1), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif fn and "Used" in line and "registers" in line:
+            out[fn] = f"{line.split('ptxas info    : ')[-1].strip()}; {spill}"
+    return out
 
 
-def hbm_bytes_per_sec(name: str) -> float:
-    """Published device-memory rate of the card (NVIDIA data sheets)."""
-    if "H200" in name:
-        return 4.8e12
-    if "PCIe" in name:
-        return 2.0e12
-    if "NVL" in name:
-        return 3.9e12
-    return 3.35e12  # H100 SXM
-
-
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean milliseconds per call from CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def signed_view(t: torch.Tensor) -> torch.Tensor:
+    """Same-size signed view: torch's CUDA index and compare kernels do
+    not cover every unsigned dtype."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
 
 
 def as_signed(t: torch.Tensor) -> torch.Tensor:
-    """Same-size signed view, for comparing unsigned tensors."""
-    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
-        t.element_size()]).to(torch.int64)
+    """Widened signed view, for differences of unsigned tensors."""
+    return signed_view(t).to(torch.int64)
+
+
+def timed(times: dict, kernel: str, plain: str, library: str,
+          bound_ms: float) -> dict:
+    """A kernel's numbers from one time_turns call: medians, spread."""
+    k = times[kernel]
+    return dict(ms=k["median_ms"], ms_min=k["min_ms"], ms_max=k["max_ms"],
+                samples=k["samples"], plain_ms=times[plain]["median_ms"],
+                library_ms=times[library]["median_ms"], bound_ms=bound_ms,
+                bound_share=bound_ms / k["median_ms"])
 
 
 def kernel_phase(dev, rate):
+    from gamesmanmpi_tpu_torch.bench.kernel_cases import (
+        gather_bound_bytes,
+        gather_shapes,
+        time_turns,
+    )
     from gamesmanmpi_tpu_torch.ops.window_gather import (
+        DESIGNS,
         monotone_window_gather,
         monotone_window_gather_ref,
     )
@@ -131,55 +139,76 @@ def kernel_phase(dev, rate):
                             idx = torch.sort(torch.randint(
                                 0, m, (n,), generator=gen)).values
                         idx = idx.to(idtype).to(dev)
-                        out, nm = monotone_window_gather(table, idx, block,
-                                                         window)
                         ref, nm_ref = monotone_window_gather_ref(
                             table, idx, block, window)
-                        torch.cuda.synchronize()
-                        err = int((as_signed(out) - as_signed(ref)).abs()
-                                  .max()) if n else 0
-                        if err != 0 or int(nm) != int(nm_ref):
+                        for design in DESIGNS:
+                            out, nm = monotone_window_gather(
+                                table, idx, block, window, design=design)
+                            torch.cuda.synchronize()
+                            err = int((as_signed(out) - as_signed(ref)).abs()
+                                      .max()) if n else 0
+                            if err != 0 or int(nm) != int(nm_ref):
+                                raise AssertionError(
+                                    f"window gather {design} mismatch: "
+                                    f"{tdtype} {idtype} {kind} n={n} "
+                                    f"block={block}: max err {err}, nmiss "
+                                    f"{int(nm)} vs {int(nm_ref)}")
+                            worst = max(worst, err)
+                            cases += 1
+                        if kind == "hits" and block == 2048 and int(nm_ref):
                             raise AssertionError(
-                                f"window gather mismatch: {tdtype} {idtype} "
-                                f"{kind} n={n} block={block}: max err {err}, "
-                                f"nmiss {int(nm)} vs {int(nm_ref)}")
-                        if kind == "hits" and block == 2048 and int(nm):
-                            raise AssertionError(
-                                f"near-monotone idx missed: nmiss={int(nm)}")
-                        worst = max(worst, err)
-                        cases += 1
+                                f"near-monotone idx missed: nmiss="
+                                f"{int(nm_ref)}")
 
-    # Timing at the dense path's scale: 64M monotone indices (expansion
-    # ratio ~0.5) into a 32M-cell u8 table, block 2048, window 8192.
-    n, m = 64 << 20, 32 << 20
-    g = torch.Generator(device=dev).manual_seed(1)
-    table = torch.randint(0, 256, (m,), generator=g, device=dev,
-                          dtype=torch.int32).to(torch.uint8)
-    idx = torch.cumsum(torch.randint(0, 2, (n,), generator=g, device=dev),
-                       0).clamp_(max=m - 1)
-    out, nm = monotone_window_gather(table, idx)
-    ref, nm_ref = monotone_window_gather_ref(table, idx)
-    big_err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
-    if big_err != 0 or int(nm) != int(nm_ref):
-        raise AssertionError(f"64M gather mismatch: err {big_err}, nmiss "
-                             f"{int(nm)} vs {int(nm_ref)}")
-    del out, ref
-    ms = time_ms(lambda: monotone_window_gather(table, idx))
-    plain_ms = time_ms(lambda: monotone_window_gather_ref(table, idx))
-    library_ms = time_ms(lambda: table[idx])
-    nbytes = n * idx.element_size() + n * 1 + m * 1
-    bound_ms = nbytes / rate * 1e3
-    emit("kernel monotone_window_gather", cases=cases, max_abs_err=worst,
-         n=n, m=m, nmiss=int(nm), ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, bound_ms=bound_ms, bound_bytes=nbytes,
+    # The shapes the port runs it at (bench/kernel_cases.GATHER_SHAPES),
+    # first the dense 5x5 backward's largest launch: both designs
+    # bit-identical, then the default design, table[idx] and the plain
+    # version timed in turns.
+    shapes = []
+    for label, table, idx in gather_shapes(dev):
+        n, m = idx.shape[0], table.shape[0]
+        ref, nm_ref = monotone_window_gather_ref(table, idx)
+        for design in DESIGNS:
+            out, nm = monotone_window_gather(table, idx, design=design)
+            if not torch.equal(signed_view(out), signed_view(ref)) \
+                    or int(nm) != int(nm_ref):
+                err = int((as_signed(out) - as_signed(ref)).abs().max())
+                raise AssertionError(f"{label} gather {design} mismatch: err "
+                                     f"{err}, nmiss {int(nm)} vs "
+                                     f"{int(nm_ref)}")
+        del out, ref
+        signed = signed_view(table)
+        times = time_turns({
+            "kernel": lambda: monotone_window_gather(table, idx),
+            "library": lambda: signed[idx],
+            "plain": lambda: monotone_window_gather_ref(table, idx)})
+        nbytes = gather_bound_bytes(n, m, idx.element_size(),
+                                    table.element_size())
+        row = dict(shape=label, n=n, m=m, idx_dtype=str(idx.dtype),
+                   table_dtype=str(table.dtype), nmiss=int(nm_ref),
+                   bound_bytes=nbytes,
+                   **timed(times, "kernel", "plain", "library",
+                           nbytes / rate * 1e3))
+        emit("kernel monotone_window_gather", **row)
+        shapes.append(row)
+    emit("kernel monotone_window_gather cases", cases=cases,
+         max_abs_err=worst, library_call="table[idx]",
          hbm_bytes_per_sec=rate)
-    return dict(max_abs_err=max(worst, big_err), ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms)
+    return dict(shapes[0], max_abs_err=worst, shapes=shapes)
 
 
 def double_phase(dev, rate):
+    from gamesmanmpi_tpu_torch.bench.kernel_cases import (
+        double_bound_bytes,
+        time_turns,
+    )
     from gamesmanmpi_tpu_torch.core.codec import i64_to_u32
-    from gamesmanmpi_tpu_torch.ops.elementwise import double_u32, double_u32_ref
+    from gamesmanmpi_tpu_torch.ops.elementwise import (
+        DESIGN,
+        DESIGNS,
+        double_u32,
+        double_u32_ref,
+    )
 
     gen = torch.Generator(device="cpu").manual_seed(2)
     special = torch.tensor([0, 1 << 31, (1 << 31) + 5, (1 << 32) - 1])
@@ -193,22 +222,21 @@ def double_phase(dev, rate):
         # A view one element in is 4 B off 16-byte alignment: the scalar
         # path of the kernel.
         for view in ((x, x[1:]) if n > 1 else (x,)):
-            out = double_u32(view)
             ref = double_u32_ref(view)
-            torch.cuda.synchronize()
-            err = int((as_signed(out) - as_signed(ref)).abs().max())
-            if err != 0 or out.shape != view.shape:
-                raise AssertionError(f"double_u32 mismatch at n={n} "
-                                     f"offset={view.storage_offset()}: "
-                                     f"max err {err}")
-            worst = max(worst, err)
-            cases += 1
+            for design in DESIGNS:
+                out = double_u32(view, design)
+                torch.cuda.synchronize()
+                err = int((as_signed(out) - as_signed(ref)).abs().max())
+                if err != 0 or out.shape != view.shape:
+                    raise AssertionError(
+                        f"double_u32 {design} mismatch at n={n} offset="
+                        f"{view.storage_offset()}: max err {err}")
+                worst = max(worst, err)
+                cases += 1
 
     n = 32 << 20
     x = torch.randint(0, 1 << 32, (n,), generator=gen)
     x = i64_to_u32(x).to(dev)
-    ms = time_ms(lambda: double_u32(x))
-    plain_ms = time_ms(lambda: double_u32_ref(x))
     # The int32 view gives the same bits as a uint32 multiply, on every
     # torch (some lack uint32 `*` on CUDA).
     library = "x.view(torch.int32) * 2"
@@ -216,14 +244,16 @@ def double_phase(dev, rate):
                        double_u32(x).view(torch.int32)):
         raise AssertionError(f"library call {library} disagrees with the "
                              "kernel at 32M")
-    library_ms = time_ms(lambda: x.view(torch.int32) * 2)
-    nbytes = 2 * 4 * n
-    bound_ms = nbytes / rate * 1e3
-    emit("kernel double_u32", cases=cases, max_abs_err=worst, n=n, ms=ms,
-         plain_ms=plain_ms, library_ms=library_ms, library_call=library,
-         bound_ms=bound_ms, bound_bytes=nbytes, hbm_bytes_per_sec=rate)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms)
+    times = time_turns({"kernel": lambda: double_u32(x),
+                        "library": lambda: x.view(torch.int32) * 2,
+                        "plain": lambda: double_u32_ref(x)})
+    nbytes = double_bound_bytes(n)
+    row = dict(n=n, design=DESIGN, bound_bytes=nbytes,
+               **timed(times, "kernel", "plain", "library",
+                       nbytes / rate * 1e3))
+    emit("kernel double_u32", cases=cases, max_abs_err=worst,
+         library_call=library, hbm_bytes_per_sec=rate, **row)
+    return dict(row, max_abs_err=worst)
 
 
 def cli_solve(argv):
@@ -422,6 +452,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    from gamesmanmpi_tpu_torch.bench.kernel_cases import (
+        hbm_bytes_per_sec,
+        nvidia_smi_line,
+    )
     from gamesmanmpi_tpu_torch.kernels import build
 
     dev = torch.device("cuda", 0)
@@ -436,7 +470,7 @@ def main() -> int:
     libs = build.build_all()
     emit("build", secs=time.perf_counter() - t0,
          libraries={k: str(v.name) for k, v in libs.items()},
-         ptxas={k: v[-2000:] for k, v in build.PTXAS_REPORT.items()})
+         ptxas={k: ptxas_summary(v) for k, v in build.PTXAS_REPORT.items()})
 
     k = kernel_phase(dev, rate)
     d = double_phase(dev, rate)
@@ -447,15 +481,22 @@ def main() -> int:
     classic_5x5_phase(dense_result)
 
     def row(name, source, replaces, launches, m):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                "bound_by": "bytes", "library_ms": m["library_ms"]}
+        r = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+             "bound_by": "bytes", "library_ms": m["library_ms"],
+             "bound_share": m["bound_share"]}
+        if "shapes" in m:
+            r["shapes"] = [{k: s[k] for k in (
+                "shape", "n", "m", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_share")} for s in m["shapes"]]
+        return r
 
     print(json.dumps({"kernels": [
         # Launches on the path that runs each kernel: the dense solve for
-        # the gather, the microbench for the doubling.
+        # the gather (times at its largest launch's shape, then every
+        # shape), the microbench for the doubling.
         row("monotone_window_gather",
             "gamesmanmpi_tpu_torch/kernels/csrc/window_gather.cu",
             "gamesmanmpi_tpu/ops/pallas_gather.py:116",

@@ -6,12 +6,33 @@
 // 1,048,576 elements; this one writes every element, the tail included.
 //
 // Bound on this card: bytes. It reads 4 B and writes 4 B per element and
-// does one shift. The design is the plain one for a streaming pass: a
-// grid-stride loop over 16-byte uint4 loads and stores (four elements per
-// thread per step, neighbouring threads on neighbouring addresses), then a
-// scalar loop for the n % 4 tail. When the input and output are not both
-// 16-byte aligned (a tensor view at an odd offset), the whole pass takes
-// the scalar loop. Unsigned arithmetic, so the wrap is defined.
+// does one shift, so all that counts is keeping the memory busy to the
+// last byte. The wrapper (ops/elementwise.py `double_plan`) computes every
+// launch's grid; this file only follows it. Three designs of the
+// 16-byte-aligned part [0, 4 * nvec), all with streaming hints on loads
+// and stores (ld.global.cs / st.global.cs: every byte is touched once):
+//
+// * blocked, the default: one CTA per kThreads * kBlockedVecs vectors,
+//   as many CTAs as that takes. Each thread loads its kBlockedVecs
+//   16-byte vectors before its first store. The hardware hands the next
+//   CTA to whichever SM frees a slot, so the pass ends with a tail of
+//   one small CTA. Measured fastest on an H100 (PERF.md).
+// * stream: a persistent grid of exactly the resident CTAs (the wrapper
+//   asks double_u32_occupancy once and caches it), kUnroll independent
+//   16-byte loads per thread in flight. At 32M elements each thread runs
+//   31 or 32 rounds, so the SMs with a 32nd round set the end.
+// * bulk: a persistent grid that moves equal tiles of at most 32 KiB
+//   through a ring of kStages shared-memory stages with 1-D bulk copies
+//   (the TMA). One thread issues global->shared copies that complete on
+//   the stage's mbarrier; the CTA shifts the stage in place; the same
+//   thread writes it back with a shared->global bulk copy and waits for
+//   that copy to have read the stage (wait_group.read) before refilling
+//   it. Threads spend no registers or instructions on addresses, and
+//   kStages - 1 tiles are always in flight.
+//
+// The scalar kernel covers [start, n): the n % 4 tail, or the whole pass
+// when x or out is off 16-byte alignment (a tensor view at an odd
+// offset). Unsigned arithmetic, so the wrap is defined.
 //
 // Plain C interface, bound from Python with ctypes
 // (gamesmanmpi_tpu_torch/kernels/build.py). The launch returns the CUDA
@@ -23,20 +44,153 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;
+constexpr int kBlockedVecs = 2;
+constexpr int kTileBytes = 32 * 1024;
+constexpr int kStages = 4;
+constexpr int kBulkSmem = kStages * kTileBytes;
+
+enum Design { kStream = 0, kBulk = 1, kBlocked = 2 };
+
+__device__ __forceinline__ void shift(uint4& v) {
+  v.x <<= 1;
+  v.y <<= 1;
+  v.z <<= 1;
+  v.w <<= 1;
+}
 
 __global__ void __launch_bounds__(kThreads)
-double_u32_vec(const uint4* __restrict__ x, uint4* __restrict__ out,
-               long long nvec) {
+double_u32_stream(const uint4* __restrict__ x, uint4* __restrict__ out,
+                  long long nvec) {
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < nvec; i += stride) {
-    uint4 v = x[i];
-    v.x <<= 1;
-    v.y <<= 1;
-    v.z <<= 1;
-    v.w <<= 1;
-    out[i] = v;
+  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  for (; i + (kUnroll - 1) * stride < nvec; i += kUnroll * stride) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = __ldcs(x + i + u * stride);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      shift(v[u]);
+      __stcs(out + i + u * stride, v[u]);
+    }
   }
+  for (; i < nvec; i += stride) {
+    uint4 v = __ldcs(x + i);
+    shift(v);
+    __stcs(out + i, v);
+  }
+}
+
+// One CTA per kThreads * kBlockedVecs vectors, each thread kBlockedVecs
+// of them, neighbouring threads on neighbouring vectors.
+__global__ void __launch_bounds__(kThreads)
+double_u32_blocked(const uint4* __restrict__ x, uint4* __restrict__ out,
+                   long long nvec) {
+  const long long i0 =
+      static_cast<long long>(blockIdx.x) * kThreads * kBlockedVecs +
+      threadIdx.x;
+  uint4 v[kBlockedVecs];
+#pragma unroll
+  for (int u = 0; u < kBlockedVecs; ++u)
+    if (i0 + u * kThreads < nvec) v[u] = __ldcs(x + i0 + u * kThreads);
+#pragma unroll
+  for (int u = 0; u < kBlockedVecs; ++u) {
+    if (i0 + u * kThreads < nvec) {
+      shift(v[u]);
+      __stcs(out + i0 + u * kThreads, v[u]);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+double_u32_bulk(const unsigned char* __restrict__ x,
+                unsigned char* __restrict__ out, long long bytes,
+                int tile) {
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ __align__(8) uint64_t full[kStages];
+
+  const long long ntiles = (bytes + tile - 1) / tile;
+  const long long first = blockIdx.x;
+  // This CTA's tiles: first, first + gridDim.x, ...
+  const long long mine =
+      first < ntiles ? (ntiles - 1 - first) / gridDim.x + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(&full[s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  auto tile_bytes = [&](long long k) -> uint32_t {
+    const long long left = bytes - (first + k * gridDim.x) * tile;
+    return static_cast<uint32_t>(left < tile ? left : tile);
+  };
+  // Thread 0 only: the k-th tile of this CTA into stage k % kStages.
+  auto load = [&](long long k) {
+    const int s = static_cast<int>(k % kStages);
+    const uint32_t nb = tile_bytes(k);
+    const uint32_t bar = smem_addr(&full[s]);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(nb) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(smem_addr(stage + s * kTileBytes)),
+           "l"(x + (first + k * gridDim.x) * tile), "r"(nb), "r"(bar)
+        : "memory");
+  };
+
+  if (threadIdx.x == 0)
+    for (long long k = 0; k < kStages - 1 && k < mine; ++k) load(k);
+
+  for (long long k = 0; k < mine; ++k) {
+    const int s = static_cast<int>(k % kStages);
+    const uint32_t nb = tile_bytes(k);
+    mbar_wait(smem_addr(&full[s]), static_cast<uint32_t>((k / kStages) & 1));
+    uint4* v = reinterpret_cast<uint4*>(stage + s * kTileBytes);
+    for (uint32_t i = threadIdx.x; i < nb / 16; i += kThreads) {
+      uint4 q = v[i];
+      shift(q);
+      v[i] = q;
+    }
+    // Make this thread's writes to the stage visible to the bulk copy
+    // (the async proxy), then let thread 0 issue it.
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+          :: "l"(out + (first + k * gridDim.x) * tile),
+             "r"(smem_addr(stage + s * kTileBytes)), "r"(nb)
+          : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      if (k + kStages - 1 < mine) {
+        // Tile k + kStages - 1 goes where tile k - 1 was: its write-back
+        // (every group but the newest) must have read the stage.
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+        load(k + kStages - 1);
+      }
+    }
+  }
+  // The stages must outlive the last write-backs that read them.
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -50,43 +204,69 @@ double_u32_scalar(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   }
 }
 
-unsigned grid_for(long long work, int sms) {
-  long long blocks = (work + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sms) * 16;
-  if (blocks > cap) blocks = cap;
-  return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
-}
-
 }  // namespace
 
-// out[i] = x[i] * 2 mod 2^32 for i in [0, n). Returns 0 on success or the
-// cudaError_t code of a refused launch.
-extern "C" int double_u32_launch(const void* x, void* out, long long n,
-                                 void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const uint32_t* xs = static_cast<const uint32_t*>(x);
-  uint32_t* os = static_cast<uint32_t*>(out);
-  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
-                         reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  long long done = 0;
-  if (aligned) {
-    const long long nvec = n / 4;
-    if (nvec > 0) {
-      double_u32_vec<<<grid_for(nvec, sms), kThreads, 0, s>>>(
-          reinterpret_cast<const uint4*>(xs), reinterpret_cast<uint4*>(os),
-          nvec);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    done = nvec * 4;
+// Resident CTAs per SM of the vector kernel of `design` (0 stream, 1 bulk,
+// 2 blocked), or minus the cudaError_t code. The wrapper calls it once
+// per device.
+extern "C" int double_u32_occupancy(int design) {
+  int blocks = 0;
+  cudaError_t err;
+  if (design == kStream) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, double_u32_stream, kThreads, 0);
+  } else if (design == kBlocked) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, double_u32_blocked, kThreads, 0);
+  } else if (design == kBulk) {
+    err = cudaFuncSetAttribute(double_u32_bulk,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kBulkSmem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, double_u32_bulk, kThreads, kBulkSmem);
+  } else {
+    return -1;
   }
-  if (done < n) {
-    double_u32_scalar<<<grid_for(n - done, sms), kThreads, 0, s>>>(
-        xs, os, done, n);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// out[i] = x[i] * 2 mod 2^32: the vector kernel of `design` (0 stream,
+// 1 bulk with tiles of `tile` bytes, 2 blocked) over the first nvec
+// 16-byte vectors on `grid` CTAs (skipped when nvec or grid is 0), then
+// the scalar kernel over [start, n) on `scalar_grid` CTAs (skipped when
+// start >= n). Returns 0 on success, -1 on an unknown design, or the
+// cudaError_t code of a refused launch.
+extern "C" int double_u32_launch(int design, const void* x, void* out,
+                                 long long nvec, int grid, int tile,
+                                 long long start, long long n,
+                                 int scalar_grid, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nvec > 0 && grid > 0) {
+    const uint4* xv = static_cast<const uint4*>(x);
+    uint4* ov = static_cast<uint4*>(out);
+    if (design == kStream) {
+      double_u32_stream<<<grid, kThreads, 0, s>>>(xv, ov, nvec);
+    } else if (design == kBlocked) {
+      double_u32_blocked<<<grid, kThreads, 0, s>>>(xv, ov, nvec);
+    } else if (design == kBulk) {
+      cudaError_t err = cudaFuncSetAttribute(
+          double_u32_bulk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kBulkSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      double_u32_bulk<<<grid, kThreads, kBulkSmem, s>>>(
+          static_cast<const unsigned char*>(x),
+          static_cast<unsigned char*>(out), nvec * 16, tile);
+    } else {
+      return -1;
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (start < n && scalar_grid > 0) {
+    double_u32_scalar<<<scalar_grid, kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), start,
+        n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,10 +2,11 @@
 
 The dense engine's backward step is, per move, one byte gather with a
 globally non-decreasing flat index vector (solve/dense.py builds exactly
-that with its monotone fill). Each block of `block` indices then touches a
-bounded stretch of the table, so a kernel can stage two window-aligned
-tiles on chip and select locally instead of issuing one scattered read
-per element.
+that with its monotone fill). A run of consecutive indices then touches a
+bounded stretch of the table, which a kernel reads from on-chip memory
+(L1, or a span staged in shared memory) instead of issuing one scattered
+read per element. The reference's `block`/`window` tiling survives only
+in the miss count; the CUDA kernel's work split is its own.
 
 * :func:`monotone_window_gather` — the hand-written CUDA kernel
   (kernels/csrc/window_gather.cu) for a CUDA tensor; for a CPU tensor it
@@ -14,6 +15,9 @@ per element.
   same contract.
 * :func:`cells_table_gather` — the reference's direct-address gather
   (plain torch: it was never a Pallas kernel).
+* :func:`gather_plan`, :func:`run_bounds`, :func:`tile_is_vector`,
+  :func:`staged_span` — the kernel's launch arithmetic, here in Python so
+  that the CPU tests reach it; the CUDA source follows it.
 
 Contract (stronger than the TPU kernel's): ``out == table[clamp(idx, 0,
 M-1)]`` at every position, and ``nmiss`` counts the elements outside
@@ -25,9 +29,101 @@ correctness: callers need no fallback.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
 import torch
 
 from gamesmanmpi_tpu_torch import kernels
+
+#: The CUDA source's constants: threads per CTA, outputs a lane stores per
+#: tile, and the tile (indices per CTA step).
+THREADS = 256
+LANE_ELEMS = 16
+TILE = THREADS * LANE_ELEMS
+#: Table reads: "direct" (__ldg) or "staged" (the run's span copied into
+#: shared memory by one bulk copy).
+DESIGNS = ("direct", "staged")
+#: The faster of the two at the dense path's shapes on an H100 (PERF.md,
+#: tools/torch_kernel_sweep.py).
+DESIGN = "staged"
+#: Tiles per CTA run, by design.
+TILES_PER_CTA = {"direct": 1, "staged": 2}
+#: Staged span: two table entries per index of the run, at most 32 KiB
+#: (at a run of 8,192: two u8 entries or one u32 entry per index; the
+#: dense child gather drifts ~1.3 u8 entries per index, section 7b's
+#: sorted index 0.25 u32 entries).
+SPAN_BUDGET_MAX = 32 * 1024
+#: Shared memory one CTA can have on an H100.
+SMEM_LIMIT = 227 * 1024
+
+
+@dataclass(frozen=True)
+class GatherPlan:
+    """One launch: `grid` CTAs, CTA c taking indices run_bounds(plan, c);
+    `vector` when idx and out are 16-byte aligned; `budget` bytes of
+    staged span (0: direct); `smem` dynamic shared bytes per CTA."""
+
+    design: str
+    n: int
+    run: int
+    grid: int
+    vector: bool
+    budget: int
+    smem: int
+
+
+def gather_plan(n: int, table_bytes: int, idx_ptr: int, out_ptr: int,
+                design: str = DESIGN,
+                tiles_per_cta: Optional[int] = None) -> GatherPlan:
+    """The launch arithmetic for n indices into a table of `table_bytes`
+    elements. The split is the kernel's own: `block` and `window` only
+    define the miss count."""
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
+    tpc = TILES_PER_CTA[design] if tiles_per_cta is None else tiles_per_cta
+    if tpc <= 0:
+        raise ValueError(f"tiles_per_cta must be positive, got {tpc}")
+    run = tpc * TILE
+    budget = (min(2 * run * table_bytes, SPAN_BUDGET_MAX)
+              if design == "staged" else 0)
+    smem = budget + TILE * table_bytes  # + the per-warp output buffers
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{smem} B of shared memory per CTA; a CTA has "
+                         f"{SMEM_LIMIT}")
+    return GatherPlan(design=design, n=n, run=run, grid=-(-n // run),
+                      vector=((idx_ptr | out_ptr) & 15) == 0, budget=budget,
+                      smem=smem)
+
+
+def run_bounds(plan: GatherPlan, cta: int) -> Tuple[int, int]:
+    """[start, stop) of the indices CTA `cta` gathers."""
+    start = cta * plan.run
+    return start, min(start + plan.run, plan.n)
+
+
+def tile_is_vector(plan: GatherPlan, t0: int) -> bool:
+    """Whether the tile at t0 takes the vector path (16-byte index loads
+    and stores): a whole tile, with idx and out aligned."""
+    return plan.vector and t0 + TILE <= plan.n
+
+
+def staged_span(plan: GatherPlan, first: int, last: int, m: int,
+                table_ptr: int, table_bytes: int) -> Tuple[int, int]:
+    """(span_lo, span_len) in table entries: what a staged CTA whose run
+    starts at index value `first` and ends at `last` copies into shared
+    memory. 16-byte aligned at both ends, never past the table, at most
+    plan.budget bytes; (0, 0) when nothing is staged."""
+    tb = table_bytes
+    lo, hi = min(max(first, 0), m - 1), min(max(last, 0), m - 1)
+    if plan.budget == 0 or table_ptr % 16 or hi < lo:
+        return 0, 0
+    b_lo = lo * tb // 16 * 16
+    b_hi = min(-(-(hi + 1) * tb // 16) * 16, m * tb // 16 * 16,
+               b_lo + plan.budget)
+    if b_hi <= b_lo:
+        return 0, 0
+    return b_lo // tb, (b_hi - b_lo) // tb
 
 
 def padded_table_len(m: int, window: int) -> int:
@@ -82,12 +178,15 @@ def monotone_window_gather_ref(table, idx, block: int = 2048,
 
 
 def monotone_window_gather(table, idx, block: int = 2048,
-                           window: int = 8192):
+                           window: int = 8192, design: str = DESIGN,
+                           tiles_per_cta: Optional[int] = None):
     """table [M], idx [N] int32/int64 non-decreasing ->
     (out [N] table.dtype, nmiss int32 scalar tensor on the same device).
 
     On a CUDA tensor this launches the CUDA kernel (and counts the launch
     in kernels.LAUNCHES); on a CPU tensor it is the plain version.
+    `design` and `tiles_per_cta` pick the kernel's variant (gather_plan);
+    the defaults are the faster.
     """
     _check(table, idx, block, window)
     if table.device.type == "cpu":
@@ -103,16 +202,15 @@ def monotone_window_gather(table, idx, block: int = 2048,
     nmiss = torch.zeros((), dtype=torch.int32, device=table.device)
     if n == 0:
         return out, nmiss
-    smem = 2 * window * table.element_size()
-    if smem > 227 * 1024:
-        raise ValueError(f"two windows of {window} elements need {smem} B "
-                         "of shared memory; a CTA has 227 KB")
+    p = gather_plan(n, table.element_size(), idx.data_ptr(), out.data_ptr(),
+                    design, tiles_per_cta)
     lib = build.load("window_gather")
     stream = torch.cuda.current_stream(table.device).cuda_stream
     code = lib.window_gather_launch(
-        table.element_size(), idx.element_size(), table.data_ptr(), m,
-        idx.data_ptr(), n, out.data_ptr(), nmiss.data_ptr(), block, window,
-        padded_table_len(m, window) // window, stream)
+        table.element_size(), idx.element_size(), int(p.design == "staged"),
+        table.data_ptr(), m, idx.data_ptr(), n, out.data_ptr(),
+        nmiss.data_ptr(), block, window, padded_table_len(m, window) // window,
+        p.run, p.grid, int(p.vector), p.budget, p.smem, stream)
     build.check("monotone_window_gather", code)
     kernels.LAUNCHES["monotone_window_gather"] += 1
     return out, nmiss

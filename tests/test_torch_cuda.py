@@ -17,6 +17,7 @@ import torch
 from gamesmanmpi_tpu_torch import kernels
 from gamesmanmpi_tpu_torch.games import get_game
 from gamesmanmpi_tpu_torch.ops import window_gather as port
+from gamesmanmpi_tpu_torch.ops.elementwise import DESIGNS as DOUBLE_DESIGNS
 from gamesmanmpi_tpu_torch.ops.elementwise import double_u32, double_u32_ref
 from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
 from gamesmanmpi_tpu_torch.solve.engine import Solver
@@ -29,31 +30,101 @@ def _need_card():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
 
 
+def _signed(t):
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def _table(rng, m, tdtype, offset=0):
+    """A seeded table of m entries on the card; offset > 0 gives a view that
+    many entries into a longer one (off 16-byte alignment)."""
+    hi = 256 if tdtype == torch.uint8 else 1 << 32
+    t = torch.from_numpy(rng.integers(0, hi, size=m + offset).astype(
+        np.uint8 if tdtype == torch.uint8 else np.uint32).view(
+        np.uint8 if tdtype == torch.uint8 else np.int32)).cuda()
+    return t.view(tdtype)[offset:]
+
+
+def _gather_matches(t, i, block=2048, window=8192, **kw):
+    before = kernels.LAUNCHES["monotone_window_gather"]
+    out, nmiss = port.monotone_window_gather(t, i, block, window, **kw)
+    ref, nref = port.monotone_window_gather_ref(t, i, block, window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["monotone_window_gather"] == before + 1
+    assert out.dtype == t.dtype and out.shape == i.shape
+    np.testing.assert_array_equal(_signed(out).cpu().numpy(),
+                                  _signed(ref).cpu().numpy())
+    assert int(nmiss) == int(nref)
+    return int(nmiss)
+
+
+@pytest.mark.parametrize("design", port.DESIGNS)
 @pytest.mark.parametrize("tdtype", [torch.uint8, torch.uint32])
 @pytest.mark.parametrize("idtype", [torch.int32, torch.int64])
-def test_kernel_matches_plain_version(tdtype, idtype):
+def test_kernel_matches_plain_version(tdtype, idtype, design):
     _need_card()
     rng = np.random.default_rng(0)
     m = 1 << 18
     for span in (3, None):
-        table = rng.integers(0, 256 if tdtype == torch.uint8 else 1 << 32,
-                             size=m)
+        t = _table(rng, m, tdtype)
         if span is None:
             idx = np.sort(rng.integers(0, m, size=5000))
         else:
             idx = np.minimum(np.cumsum(rng.integers(0, span, size=5000)),
                              m - 1)
-        t = torch.from_numpy(table).to(tdtype).cuda()
         i = torch.from_numpy(idx).to(idtype).cuda()
         for block, window in ((256, 1024), (2048, 8192)):
-            before = kernels.LAUNCHES["monotone_window_gather"]
-            out, nmiss = port.monotone_window_gather(t, i, block, window)
-            ref, nref = port.monotone_window_gather_ref(t, i, block, window)
-            torch.cuda.synchronize()
-            assert kernels.LAUNCHES["monotone_window_gather"] == before + 1
-            np.testing.assert_array_equal(out.cpu().numpy(),
-                                          ref.cpu().numpy())
-            assert int(nmiss) == int(nref)
+            _gather_matches(t, i, block, window, design=design)
+
+
+EDGE_N = [1, 15, 16, 17, 2047, 2049, 5000, (1 << 20) + 3]
+
+
+@pytest.mark.parametrize("case", ["aligned", "idx_off", "table_off",
+                                  "wide_span", "clamp"])
+@pytest.mark.parametrize("n", EDGE_N)
+@pytest.mark.parametrize("design", port.DESIGNS)
+@pytest.mark.parametrize("tdtype", [torch.uint8, torch.uint32])
+@pytest.mark.parametrize("idtype", [torch.int32, torch.int64])
+def test_gather_edge_cases(idtype, tdtype, design, n, case):
+    """Ragged lengths around the 16-index lane and the 2,048 block, views
+    one entry off 16-byte alignment (idx: the scalar path; table: no
+    staging), a span far wider than the staging budget, and indices
+    clamped at both ends: bit-identical, nmiss equal."""
+    _need_card()
+    rng = np.random.default_rng(n)
+    m = (1 << 22) if case == "wide_span" else (1 << 18)
+    t = _table(rng, m, tdtype, offset=1 if case == "table_off" else 0)
+    if case == "wide_span":
+        idx = np.sort(rng.integers(0, m, size=n))
+    else:
+        idx = np.minimum(np.cumsum(rng.integers(0, 3, size=n)), m - 1)
+    if case == "clamp":
+        # Leading negatives and trailing indices >= M, still sorted.
+        k = max(n // 10, 1)
+        idx[:k] = np.sort(rng.integers(-100, 0, size=k))
+        idx[n - k:] = np.maximum(idx[n - k:], np.sort(
+            rng.integers(m, m + 100, size=k)))
+        idx = np.maximum.accumulate(idx)
+    i = torch.from_numpy(idx).to(idtype).cuda()
+    if case == "idx_off":
+        i = torch.cat([i[:1], i]).contiguous()[1:]
+        assert i.data_ptr() % 16
+    _gather_matches(t, i, design=design)
+
+
+@pytest.mark.parametrize("tiles_per_cta", [1, 2, 4])
+@pytest.mark.parametrize("design", port.DESIGNS)
+def test_gather_run_lengths(design, tiles_per_cta):
+    _need_card()
+    rng = np.random.default_rng(7)
+    m = 1 << 20
+    t = _table(rng, m, torch.uint8)
+    n = 5 * port.TILE * tiles_per_cta + 7
+    idx = np.minimum(np.cumsum(rng.integers(0, 3, size=n)), m - 1)
+    for idtype in (torch.int32, torch.int64):
+        i = torch.from_numpy(idx).to(idtype).cuda()
+        _gather_matches(t, i, design=design, tiles_per_cta=tiles_per_cta)
 
 
 def test_dense_solve_on_card_matches_cpu():
@@ -67,8 +138,10 @@ def test_dense_solve_on_card_matches_cpu():
         np.testing.assert_array_equal(card.cells[L], cells)
 
 
-@pytest.mark.parametrize("n", [1, 3, 1023, 1 << 20, (1 << 20) + 1])
-def test_double_u32_kernel_matches_plain_version(n):
+@pytest.mark.parametrize("design", list(DOUBLE_DESIGNS))
+@pytest.mark.parametrize("n", [1, 3, 1023, 1 << 20, (1 << 20) + 1]
+                         + [k for k in EDGE_N if k not in (1, 1 << 20)])
+def test_double_u32_kernel_matches_plain_version(n, design):
     _need_card()
     rng = np.random.default_rng(n)
     x = rng.integers(0, 1 << 32, size=n + 1, dtype=np.uint64).astype(np.uint32)
@@ -76,10 +149,11 @@ def test_double_u32_kernel_matches_plain_version(n):
     t = torch.from_numpy(x.view(np.int32)).cuda().view(torch.uint32)
     for view in (t[:n], t[1:]):  # aligned, and one element in (scalar path)
         before = kernels.LAUNCHES["double_u32"]
-        out = double_u32(view)
+        out = double_u32(view, design)
         ref = double_u32_ref(view)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["double_u32"] == before + 1
+        assert out.shape == view.shape
         assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 

@@ -153,6 +153,184 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     assert torch.equal(out, ref) and int(nmiss) == int(nref)
 
 
+# -- the CUDA kernel's launch arithmetic (kernels/csrc/window_gather.cu) --
+
+
+def _emulate_kernel(table, idx, block, window, plan, table_ptr=0):
+    """What window_gather.cu computes, CTA by CTA: the run of each CTA from
+    run_bounds, the miss count against each element's reference block
+    (the pad replicas added once, by the last CTA), and the values read
+    from the staged span where it holds them, else from the table.
+    Returns (out, nmiss, times each index was covered)."""
+    m, n, tb = table.shape[0], idx.shape[0], table.itemsize
+    nwin = port.padded_table_len(m, window) // window
+
+    def base_of(b):
+        return min(max(int(idx[b * block]) // window, 0), nwin - 2) * window
+
+    out = np.zeros(n, table.dtype)
+    covered = np.zeros(n, np.int64)
+    nmiss = 0
+    for cta in range(plan.grid):
+        start, stop = port.run_bounds(plan, cta)
+        pos = np.arange(start, stop)
+        covered[start:stop] += 1
+        v = idx[start:stop].astype(np.int64)
+        bases = np.array([base_of(b) for b in
+                          range(start // block, (stop - 1) // block + 1)])
+        off = v - bases[pos // block - start // block]
+        nmiss += int(((off < 0) | (off >= 2 * window)).sum())
+        c = np.clip(v, 0, m - 1)
+        lo, ln = port.staged_span(plan, int(idx[start]), int(idx[stop - 1]),
+                                  m, table_ptr, tb)
+        vals = table[c]
+        held = (c >= lo) & (c < lo + ln)
+        vals[held] = table[lo:lo + ln][c[held] - lo]
+        out[start:stop] = vals
+        if cta == plan.grid - 1:
+            nblk = -(-n // block)
+            last = int(idx[n - 1]) - base_of(nblk - 1)
+            if not 0 <= last < 2 * window:
+                nmiss += nblk * block - n
+    return out, nmiss, covered
+
+
+@pytest.mark.parametrize("design", port.DESIGNS)
+@pytest.mark.parametrize("tiles_per_cta", [None, 1, 3])
+@pytest.mark.parametrize("n", [1, 15, 4095, 4096, 4097, 3 * 8192 + 5])
+def test_plan_covers_every_index_once(n, tiles_per_cta, design):
+    plan = port.gather_plan(n, 1, 0, 0, design, tiles_per_cta)
+    covered = np.zeros(n, np.int64)
+    for cta in range(plan.grid):
+        start, stop = port.run_bounds(plan, cta)
+        assert start < stop and start % port.TILE == 0
+        covered[start:stop] += 1
+        for t0 in range(start, stop, port.TILE):
+            # A vector tile is whole; the scalar path takes the rest.
+            assert port.tile_is_vector(plan, t0) == (t0 + port.TILE <= n)
+    assert (covered == 1).all()
+    assert port.run_bounds(plan, plan.grid)[0] >= n
+
+
+@pytest.mark.parametrize("idx_bytes", [4, 8])
+@pytest.mark.parametrize("table_bytes", [1, 2, 4])
+def test_vector_tile_lane_mapping(idx_bytes, table_bytes):
+    """A vector tile's loads (16-byte index vectors, coalesced over the
+    warp) and stores (16 consecutive outputs per lane, rotated) each cover
+    the tile once, and the rotated reads of the per-warp buffer put the 8
+    lanes of each shared-memory phase on distinct banks."""
+    e_per, r = 16 // idx_bytes, table_bytes
+    loads = np.zeros(port.TILE, np.int64)
+    stores = np.zeros(port.TILE, np.int64)
+    for warp in range(port.THREADS // 32):
+        w0 = warp * 32 * port.LANE_ELEMS
+        for j in range(r):
+            banks = []
+            for lane in range(32):
+                k = (j + lane // (8 // r)) % r
+                word = lane * r + k  # 16-byte word of the warp buffer
+                first = w0 + word * 16 // table_bytes
+                stores[first:first + 16 // table_bytes] += 1
+                banks.append(word % 8)  # 8 words of 16 B span the 32 banks
+            for phase in range(4):
+                assert len(set(banks[8 * phase:8 * phase + 8])) == 8
+        for lane in range(32):
+            for s in range(port.LANE_ELEMS // e_per):
+                first = w0 + (s * 32 + lane) * e_per
+                loads[first:first + e_per] += 1
+    assert (loads == 1).all() and (stores == 1).all()
+
+
+@pytest.mark.parametrize("design", port.DESIGNS)
+@pytest.mark.parametrize("table_bytes", [1, 2, 4])
+@pytest.mark.parametrize("tiles_per_cta", [None, 1, 2, 4, 8])
+def test_plan_shared_memory_fits(tiles_per_cta, table_bytes, design):
+    plan = port.gather_plan(1 << 20, table_bytes, 0, 0, design,
+                            tiles_per_cta)
+    assert plan.smem <= port.SMEM_LIMIT == 227 * 1024
+    assert plan.budget % 16 == 0
+    assert plan.smem == plan.budget + port.TILE * table_bytes
+    assert (plan.budget > 0) == (design == "staged")
+
+
+def test_plan_refuses_more_shared_memory_than_a_cta_has(monkeypatch):
+    monkeypatch.setattr(port, "SPAN_BUDGET_MAX", port.SMEM_LIMIT)
+    with pytest.raises(ValueError, match="shared memory"):
+        port.gather_plan(1 << 20, 4, 0, 0, "staged", tiles_per_cta=64)
+
+
+def test_plan_vector_path_needs_both_pointers_aligned():
+    assert port.gather_plan(8192, 1, 256, 512).vector
+    assert not port.gather_plan(8192, 1, 256 + 8, 512).vector  # idx view
+    assert not port.gather_plan(8192, 1, 256, 512 + 4).vector  # out view
+    with pytest.raises(ValueError):
+        port.gather_plan(8192, 1, 0, 0, design="tma")
+    with pytest.raises(ValueError):
+        port.gather_plan(8192, 1, 0, 0, tiles_per_cta=0)
+
+
+@pytest.mark.parametrize("table_bytes", [1, 2, 4])
+@pytest.mark.parametrize("seed", range(4))
+def test_staged_span_is_aligned_inside_table_and_budget(seed, table_bytes):
+    rng = np.random.default_rng(seed)
+    plan = port.gather_plan(1 << 16, table_bytes, 0, 0, "staged")
+    for _ in range(200):
+        m = int(rng.integers(1, 1 << 16))
+        first = int(rng.integers(-50, m + 50))
+        last = first + int(rng.integers(0, 3 * plan.budget // table_bytes))
+        lo, ln = port.staged_span(plan, first, last, m, 0, table_bytes)
+        if ln == 0:
+            continue
+        assert (lo * table_bytes) % 16 == 0
+        assert ((lo + ln) * table_bytes) % 16 == 0
+        assert 0 <= lo and lo + ln <= m and ln * table_bytes <= plan.budget
+        c_first, c_last = min(max(first, 0), m - 1), min(max(last, 0), m - 1)
+        assert lo <= c_first
+        end16 = m * table_bytes // 16 * 16 // table_bytes
+        if (c_last - lo + 1) * table_bytes <= plan.budget and c_last < end16:
+            assert c_last < lo + ln  # the whole run's span is held
+    # Nothing staged for the direct design or a table off 16-byte alignment.
+    direct = port.gather_plan(1 << 16, table_bytes, 0, 0, "direct")
+    assert port.staged_span(direct, 0, 100, 1000, 0, table_bytes) == (0, 0)
+    assert port.staged_span(plan, 0, 100, 1000, 4, table_bytes) == (0, 0)
+
+
+@pytest.mark.parametrize("design", port.DESIGNS)
+@pytest.mark.parametrize("block,window", [(2048, 8192), (256, 1024),
+                                          (100, 512)])
+@pytest.mark.parametrize("kind", ["hits", "misses"])
+@pytest.mark.parametrize("n", [1, 2049, 3 * 4096 + 17, 20000])
+def test_per_run_miss_accounting_matches_reference(n, kind, block, window,
+                                                   design):
+    """The kernel's per-run miss count, emulated over its own split,
+    equals the reference's (_ok_mask plus the pad replicas); its values
+    equal table[clip(idx)]."""
+    tdtype = np.uint8 if design == "direct" else np.uint32
+    table, idx = _case(1 << 16, n, n + block, tdtype=tdtype,
+                       idtype=np.int64,
+                       span=3 if kind == "hits" else None)
+    if kind == "misses":
+        idx[: max(n // 50, 1)] = -7  # a clamped head, missing its window
+    plan = port.gather_plan(n, table.itemsize, 0, 0, design,
+                            tiles_per_cta=2)
+    out, nmiss, covered = _emulate_kernel(table, idx, block, window, plan)
+    assert (covered == 1).all()
+    np.testing.assert_array_equal(out, table[np.clip(idx, 0,
+                                                     table.shape[0] - 1)])
+    _, ref_miss = port.monotone_window_gather_ref(
+        torch.from_numpy(table), torch.from_numpy(idx), block, window)
+    npad = -n % block
+    ok = _ok_mask(table, idx, block, window)
+    nblk = -(-n // block)
+    nwin = port.padded_table_len(table.shape[0], window) // window
+    base = min(max(int(idx[(nblk - 1) * block]) // window, 0),
+               nwin - 2) * window
+    pad_miss = 0 if 0 <= int(idx[-1]) - base < 2 * window else npad
+    assert nmiss == int(ref_miss) == int((~ok).sum()) + pad_miss
+    if kind == "misses":
+        assert nmiss > 0
+
+
 def test_rejects_what_the_kernel_does_not_take():
     t = torch.zeros(16, dtype=torch.uint8)
     with pytest.raises(TypeError):

@@ -14,7 +14,11 @@ stdout, the full per-kernel table in --out:
 3. profile — one window-gather backward under torch.profiler: device time
    by kernel name, the window-gather kernel's share, the device's busy
    share of the wall time, and how long the host waited on a full launch
-   queue (a sign that the device, not the host, sets the pace).
+   queue (a sign that the device, not the host, sets the pace). The
+   gather's launches are recorded on the way (index count, table size,
+   element sizes), which gives its byte bound summed over the backward
+   (bench/kernel_cases.gather_bound_bytes per launch) and its measured
+   kernel time's share of that bound.
 """
 
 from __future__ import annotations
@@ -29,8 +33,14 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
+from gamesmanmpi_tpu_torch.bench.kernel_cases import (  # noqa: E402
+    gather_bound_bytes,
+    hbm_bytes_per_sec,
+    nvidia_smi_line,
+)
 from gamesmanmpi_tpu_torch.games import get_game  # noqa: E402
 from gamesmanmpi_tpu_torch.kernels import build  # noqa: E402
+from gamesmanmpi_tpu_torch.solve import dense  # noqa: E402
 from gamesmanmpi_tpu_torch.solve.dense import DenseSolver  # noqa: E402
 
 
@@ -40,6 +50,19 @@ def _device_us(evt) -> float:
         if v is not None:
             return float(v)
     return 0.0
+
+
+def recording_gather(shapes: list):
+    """dense.monotone_window_gather that also appends each launch's
+    (n, m, idx bytes, table bytes) to `shapes`."""
+    inner = dense.monotone_window_gather
+
+    def gather(table, idx, *args, **kwargs):
+        shapes.append((idx.shape[0], table.shape[0], idx.element_size(),
+                       table.element_size()))
+        return inner(table, idx, *args, **kwargs)
+
+    return gather
 
 
 def main(argv=None) -> int:
@@ -57,7 +80,8 @@ def main(argv=None) -> int:
     warm = DenseSolver(game).solve()
     s = warm.stats
     print(json.dumps({
-        "phase": "warm", "device": name, "game": game.name,
+        "phase": "warm", "device": name, "nvidia_smi": nvidia_smi_line(),
+        "game": game.name,
         "positions": warm.num_positions,
         "root": [warm.value, warm.remoteness],
         "secs_backward": s["secs_backward"],
@@ -78,11 +102,17 @@ def main(argv=None) -> int:
     solver = DenseSolver(game, store_tables=False)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        solver.solve()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    shapes: list = []
+    kernel_gather = dense.monotone_window_gather
+    dense.monotone_window_gather = recording_gather(shapes)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            solver.solve()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        dense.monotone_window_gather = kernel_gather
     # Device-side rows only: a CPU op's row repeats the time of the
     # kernels it launched. CUPTI's "Command Buffer Full" overhead row
     # (the host waiting for room in the launch queue) is not kernel time.
@@ -102,12 +132,21 @@ def main(argv=None) -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"device": name, "game": game.name,
                                "wall_s": wall, "kernels": rows}, indent=1))
+    bound_bytes = sum(gather_bound_bytes(*sh) for sh in shapes)
+    bound_s = bound_bytes / hbm_bytes_per_sec(name)
     print(json.dumps({
         "phase": "profile", "device": name, "wall_s_profiled": wall,
         "device_busy_s": busy_us / 1e6,
         "busy_share": busy_us / 1e6 / wall if wall else None,
         "window_gather_s": gather_us / 1e6,
         "window_gather_share_of_busy": gather_us / busy_us if busy_us else None,
+        "window_gather_launches": len(shapes),
+        "window_gather_lanes": sum(sh[0] for sh in shapes),
+        "window_gather_largest": max(shapes) if shapes else None,
+        "window_gather_bound_bytes": bound_bytes,
+        "window_gather_bound_s": bound_s,
+        "window_gather_bound_share": bound_s / (gather_us / 1e6)
+        if gather_us else None,
         "kernel_launches": sum(r["calls"] for r in rows),
         "launch_queue_full_s": queue_full_us / 1e6,
         "top": rows[:12],
