@@ -8,23 +8,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2. build   — nvcc builds every kernel from kernels/csrc, one nvcc per
              source, all started together (timed, with each kernel's
              ptxas register/shared-memory/spill report).
-3. kernel monotone_window_gather — both designs of the CUDA kernel
-             (direct and staged table reads) against the plain PyTorch
-             version on the card: u8/u32 tables, int32/int64 indices,
-             all-hit and missing index vectors, ragged lengths; `out`
-             bit-identical and `nmiss` equal. Then at each shape of
+3. kernel monotone_window_gather — the CUDA kernel against the plain
+             PyTorch version on the card: u8/u32 tables, int32/int64
+             indices, all-hit and missing index vectors, ragged lengths;
+             `out` bit-identical and `nmiss` equal. Then at each shape of
              bench/kernel_cases.GATHER_SHAPES (the dense 5x5 backward's
-             largest launch, microbench section 7b, 64M into 32M u8): both
-             designs bit-identical, and the default design, `table[idx]`
-             and the plain version timed in turns (medians of 10 samples
-             over 5 rounds), beside the byte bound.
-4. kernel double_u32 — every design of the CUDA kernel (blocked, stream,
-             bulk) bit-identical to the plain version at N in {1, 3, 1023, 1M,
-             1M+1, 32M} (seeded values with 0, 2^31, 2^31+5 and 2^32-1 at
-             both ends), on aligned tensors and on views one element in
-             (the scalar path). Then at 32M the default design, the
-             library call and the plain version timed in turns, beside the
-             byte bound.
+             largest launch, microbench section 7b, 64M into 32M u8):
+             bit-identical, and the kernel, `table[idx]` and the plain
+             version timed in turns (medians of 10 samples over 5 rounds),
+             beside the byte bound.
+4. kernel double_u32 — the CUDA kernel bit-identical to the plain
+             version at N in {1, 3, 1023, 1M, 1M+1, 32M} (seeded values
+             with 0, 2^31, 2^31+5 and 2^32-1 at both ends), on aligned
+             tensors and on views one element in (the scalar path). Then
+             at 32M the kernel, the library call and the plain version
+             timed in turns, beside the byte bound.
 5. dense 4x4 — window-kernel and plain-gather solves on the card give
              byte-identical cells and 161,029 positions; 5x4 gives
              3,945,711 positions, TIE, remoteness 20; 3x4 connect-3 on the
@@ -116,7 +114,6 @@ def kernel_phase(dev, rate):
         time_turns,
     )
     from gamesmanmpi_tpu_torch.ops.window_gather import (
-        DESIGNS,
         monotone_window_gather,
         monotone_window_gather_ref,
     )
@@ -141,41 +138,36 @@ def kernel_phase(dev, rate):
                         idx = idx.to(idtype).to(dev)
                         ref, nm_ref = monotone_window_gather_ref(
                             table, idx, block, window)
-                        for design in DESIGNS:
-                            out, nm = monotone_window_gather(
-                                table, idx, block, window, design=design)
-                            torch.cuda.synchronize()
-                            err = int((as_signed(out) - as_signed(ref)).abs()
-                                      .max()) if n else 0
-                            if err != 0 or int(nm) != int(nm_ref):
-                                raise AssertionError(
-                                    f"window gather {design} mismatch: "
-                                    f"{tdtype} {idtype} {kind} n={n} "
-                                    f"block={block}: max err {err}, nmiss "
-                                    f"{int(nm)} vs {int(nm_ref)}")
-                            worst = max(worst, err)
-                            cases += 1
+                        out, nm = monotone_window_gather(table, idx, block,
+                                                         window)
+                        torch.cuda.synchronize()
+                        err = int((as_signed(out) - as_signed(ref)).abs()
+                                  .max()) if n else 0
+                        if err != 0 or int(nm) != int(nm_ref):
+                            raise AssertionError(
+                                f"window gather mismatch: {tdtype} {idtype} "
+                                f"{kind} n={n} block={block}: max err {err}, "
+                                f"nmiss {int(nm)} vs {int(nm_ref)}")
+                        worst = max(worst, err)
+                        cases += 1
                         if kind == "hits" and block == 2048 and int(nm_ref):
                             raise AssertionError(
                                 f"near-monotone idx missed: nmiss="
                                 f"{int(nm_ref)}")
 
     # The shapes the port runs it at (bench/kernel_cases.GATHER_SHAPES),
-    # first the dense 5x5 backward's largest launch: both designs
-    # bit-identical, then the default design, table[idx] and the plain
-    # version timed in turns.
+    # first the dense 5x5 backward's largest launch: bit-identical, then
+    # the kernel, table[idx] and the plain version timed in turns.
     shapes = []
     for label, table, idx in gather_shapes(dev):
         n, m = idx.shape[0], table.shape[0]
         ref, nm_ref = monotone_window_gather_ref(table, idx)
-        for design in DESIGNS:
-            out, nm = monotone_window_gather(table, idx, design=design)
-            if not torch.equal(signed_view(out), signed_view(ref)) \
-                    or int(nm) != int(nm_ref):
-                err = int((as_signed(out) - as_signed(ref)).abs().max())
-                raise AssertionError(f"{label} gather {design} mismatch: err "
-                                     f"{err}, nmiss {int(nm)} vs "
-                                     f"{int(nm_ref)}")
+        out, nm = monotone_window_gather(table, idx)
+        if not torch.equal(signed_view(out), signed_view(ref)) \
+                or int(nm) != int(nm_ref):
+            err = int((as_signed(out) - as_signed(ref)).abs().max())
+            raise AssertionError(f"{label} gather mismatch: err {err}, "
+                                 f"nmiss {int(nm)} vs {int(nm_ref)}")
         del out, ref
         signed = signed_view(table)
         times = time_turns({
@@ -204,8 +196,6 @@ def double_phase(dev, rate):
     )
     from gamesmanmpi_tpu_torch.core.codec import i64_to_u32
     from gamesmanmpi_tpu_torch.ops.elementwise import (
-        DESIGN,
-        DESIGNS,
         double_u32,
         double_u32_ref,
     )
@@ -223,16 +213,15 @@ def double_phase(dev, rate):
         # path of the kernel.
         for view in ((x, x[1:]) if n > 1 else (x,)):
             ref = double_u32_ref(view)
-            for design in DESIGNS:
-                out = double_u32(view, design)
-                torch.cuda.synchronize()
-                err = int((as_signed(out) - as_signed(ref)).abs().max())
-                if err != 0 or out.shape != view.shape:
-                    raise AssertionError(
-                        f"double_u32 {design} mismatch at n={n} offset="
-                        f"{view.storage_offset()}: max err {err}")
-                worst = max(worst, err)
-                cases += 1
+            out = double_u32(view)
+            torch.cuda.synchronize()
+            err = int((as_signed(out) - as_signed(ref)).abs().max())
+            if err != 0 or out.shape != view.shape:
+                raise AssertionError(
+                    f"double_u32 mismatch at n={n} offset="
+                    f"{view.storage_offset()}: max err {err}")
+            worst = max(worst, err)
+            cases += 1
 
     n = 32 << 20
     x = torch.randint(0, 1 << 32, (n,), generator=gen)
@@ -248,7 +237,7 @@ def double_phase(dev, rate):
                         "library": lambda: x.view(torch.int32) * 2,
                         "plain": lambda: double_u32_ref(x)})
     nbytes = double_bound_bytes(n)
-    row = dict(n=n, design=DESIGN, bound_bytes=nbytes,
+    row = dict(n=n, bound_bytes=nbytes,
                **timed(times, "kernel", "plain", "library",
                        nbytes / rate * 1e3))
     emit("kernel double_u32", cases=cases, max_abs_err=worst,

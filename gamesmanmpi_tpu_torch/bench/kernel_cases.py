@@ -1,6 +1,6 @@
 """Shapes, byte bounds and in-turn timing for the port's CUDA kernels.
 
-Shared by chip_smoke.py and tools/torch_kernel_sweep.py, so that both
+Shared by chip_smoke.py and tools/torch_kernel_ab.py, so that both
 time the same inputs the same way:
 
 * :func:`time_turns` — each function timed with CUDA events over `iters`

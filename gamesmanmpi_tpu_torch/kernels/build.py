@@ -45,13 +45,11 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES: Dict[str, tuple] = {
     "window_gather": ("window_gather.cu", {
         "window_gather_launch": (
-            [_I, _I, _I, _P, _LL, _P, _LL, _P, _P, _LL, _LL, _LL, _LL, _I,
-             _I, _LL, _I, _P], _I),
+            [_I, _I, _P, _LL, _P, _LL, _P, _P, _LL, _LL, _LL, _LL, _I, _I,
+             _LL, _I, _P], _I),
     }),
     "double_u32": ("double_u32.cu", {
-        "double_u32_occupancy": ([_I], _I),
-        "double_u32_launch": ([_I, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P],
-                              _I),
+        "double_u32_launch": ([_P, _P, _LL, _I, _LL, _LL, _I, _P], _I),
     }),
 }
 

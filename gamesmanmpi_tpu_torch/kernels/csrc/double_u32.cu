@@ -8,27 +8,17 @@
 // Bound on this card: bytes. It reads 4 B and writes 4 B per element and
 // does one shift, so all that counts is keeping the memory busy to the
 // last byte. The wrapper (ops/elementwise.py `double_plan`) computes every
-// launch's grid; this file only follows it. Three designs of the
-// 16-byte-aligned part [0, 4 * nvec), all with streaming hints on loads
-// and stores (ld.global.cs / st.global.cs: every byte is touched once):
+// launch's grid; this file only follows it.
 //
-// * blocked, the default: one CTA per kThreads * kBlockedVecs vectors,
-//   as many CTAs as that takes. Each thread loads its kBlockedVecs
-//   16-byte vectors before its first store. The hardware hands the next
-//   CTA to whichever SM frees a slot, so the pass ends with a tail of
-//   one small CTA. Measured fastest on an H100 (PERF.md).
-// * stream: a persistent grid of exactly the resident CTAs (the wrapper
-//   asks double_u32_occupancy once and caches it), kUnroll independent
-//   16-byte loads per thread in flight. At 32M elements each thread runs
-//   31 or 32 rounds, so the SMs with a 32nd round set the end.
-// * bulk: a persistent grid that moves equal tiles of at most 32 KiB
-//   through a ring of kStages shared-memory stages with 1-D bulk copies
-//   (the TMA). One thread issues global->shared copies that complete on
-//   the stage's mbarrier; the CTA shifts the stage in place; the same
-//   thread writes it back with a shared->global bulk copy and waits for
-//   that copy to have read the stage (wait_group.read) before refilling
-//   it. Threads spend no registers or instructions on addresses, and
-//   kStages - 1 tiles are always in flight.
+// The vector kernel covers the 16-byte-aligned part [0, 4 * nvec) on one
+// CTA per kThreads * kVecs vectors, as many CTAs as that takes, with no
+// device query. Each thread loads its kVecs 16-byte vectors before its
+// first store, with streaming hints on loads and stores (ld.global.cs /
+// st.global.cs: every byte is touched once). The hardware hands the next
+// CTA to whichever SM frees a slot, so the pass ends with a tail of one
+// 8 KiB CTA. A persistent grid (exactly the resident CTAs, 4 loads in
+// flight per thread) and a persistent ring of 1-D bulk copies through
+// shared memory (the TMA) were both slower on an H100 (PERF.md).
 //
 // The scalar kernel covers [start, n): the n % 4 tail, or the whole pass
 // when x or out is off 16-byte alignment (a tensor view at an odd
@@ -44,13 +34,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
-constexpr int kBlockedVecs = 2;
-constexpr int kTileBytes = 32 * 1024;
-constexpr int kStages = 4;
-constexpr int kBulkSmem = kStages * kTileBytes;
-
-enum Design { kStream = 0, kBulk = 1, kBlocked = 2 };
+constexpr int kVecs = 2;
 
 __device__ __forceinline__ void shift(uint4& v) {
   v.x <<= 1;
@@ -59,138 +43,24 @@ __device__ __forceinline__ void shift(uint4& v) {
   v.w <<= 1;
 }
 
+// One CTA per kThreads * kVecs vectors, each thread kVecs of them,
+// neighbouring threads on neighbouring vectors.
 __global__ void __launch_bounds__(kThreads)
-double_u32_stream(const uint4* __restrict__ x, uint4* __restrict__ out,
-                  long long nvec) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  for (; i + (kUnroll - 1) * stride < nvec; i += kUnroll * stride) {
-    uint4 v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = __ldcs(x + i + u * stride);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      shift(v[u]);
-      __stcs(out + i + u * stride, v[u]);
-    }
-  }
-  for (; i < nvec; i += stride) {
-    uint4 v = __ldcs(x + i);
-    shift(v);
-    __stcs(out + i, v);
-  }
-}
-
-// One CTA per kThreads * kBlockedVecs vectors, each thread kBlockedVecs
-// of them, neighbouring threads on neighbouring vectors.
-__global__ void __launch_bounds__(kThreads)
-double_u32_blocked(const uint4* __restrict__ x, uint4* __restrict__ out,
-                   long long nvec) {
+double_u32_vec(const uint4* __restrict__ x, uint4* __restrict__ out,
+               long long nvec) {
   const long long i0 =
-      static_cast<long long>(blockIdx.x) * kThreads * kBlockedVecs +
-      threadIdx.x;
-  uint4 v[kBlockedVecs];
+      static_cast<long long>(blockIdx.x) * kThreads * kVecs + threadIdx.x;
+  uint4 v[kVecs];
 #pragma unroll
-  for (int u = 0; u < kBlockedVecs; ++u)
+  for (int u = 0; u < kVecs; ++u)
     if (i0 + u * kThreads < nvec) v[u] = __ldcs(x + i0 + u * kThreads);
 #pragma unroll
-  for (int u = 0; u < kBlockedVecs; ++u) {
+  for (int u = 0; u < kVecs; ++u) {
     if (i0 + u * kThreads < nvec) {
       shift(v[u]);
       __stcs(out + i0 + u * kThreads, v[u]);
     }
   }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-double_u32_bulk(const unsigned char* __restrict__ x,
-                unsigned char* __restrict__ out, long long bytes,
-                int tile) {
-  extern __shared__ __align__(128) unsigned char stage[];
-  __shared__ __align__(8) uint64_t full[kStages];
-
-  const long long ntiles = (bytes + tile - 1) / tile;
-  const long long first = blockIdx.x;
-  // This CTA's tiles: first, first + gridDim.x, ...
-  const long long mine =
-      first < ntiles ? (ntiles - 1 - first) / gridDim.x + 1 : 0;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                   :: "r"(smem_addr(&full[s])) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  auto tile_bytes = [&](long long k) -> uint32_t {
-    const long long left = bytes - (first + k * gridDim.x) * tile;
-    return static_cast<uint32_t>(left < tile ? left : tile);
-  };
-  // Thread 0 only: the k-th tile of this CTA into stage k % kStages.
-  auto load = [&](long long k) {
-    const int s = static_cast<int>(k % kStages);
-    const uint32_t nb = tile_bytes(k);
-    const uint32_t bar = smem_addr(&full[s]);
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(bar), "r"(nb) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1], %2, [%3];"
-        :: "r"(smem_addr(stage + s * kTileBytes)),
-           "l"(x + (first + k * gridDim.x) * tile), "r"(nb), "r"(bar)
-        : "memory");
-  };
-
-  if (threadIdx.x == 0)
-    for (long long k = 0; k < kStages - 1 && k < mine; ++k) load(k);
-
-  for (long long k = 0; k < mine; ++k) {
-    const int s = static_cast<int>(k % kStages);
-    const uint32_t nb = tile_bytes(k);
-    mbar_wait(smem_addr(&full[s]), static_cast<uint32_t>((k / kStages) & 1));
-    uint4* v = reinterpret_cast<uint4*>(stage + s * kTileBytes);
-    for (uint32_t i = threadIdx.x; i < nb / 16; i += kThreads) {
-      uint4 q = v[i];
-      shift(q);
-      v[i] = q;
-    }
-    // Make this thread's writes to the stage visible to the bulk copy
-    // (the async proxy), then let thread 0 issue it.
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      asm volatile(
-          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-          :: "l"(out + (first + k * gridDim.x) * tile),
-             "r"(smem_addr(stage + s * kTileBytes)), "r"(nb)
-          : "memory");
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      if (k + kStages - 1 < mine) {
-        // Tile k + kStages - 1 goes where tile k - 1 was: its write-back
-        // (every group but the newest) must have read the stage.
-        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-        load(k + kStages - 1);
-      }
-    }
-  }
-  // The stages must outlive the last write-backs that read them.
-  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -206,60 +76,18 @@ double_u32_scalar(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
 
 }  // namespace
 
-// Resident CTAs per SM of the vector kernel of `design` (0 stream, 1 bulk,
-// 2 blocked), or minus the cudaError_t code. The wrapper calls it once
-// per device.
-extern "C" int double_u32_occupancy(int design) {
-  int blocks = 0;
-  cudaError_t err;
-  if (design == kStream) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, double_u32_stream, kThreads, 0);
-  } else if (design == kBlocked) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, double_u32_blocked, kThreads, 0);
-  } else if (design == kBulk) {
-    err = cudaFuncSetAttribute(double_u32_bulk,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kBulkSmem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, double_u32_bulk, kThreads, kBulkSmem);
-  } else {
-    return -1;
-  }
-  return err == cudaSuccess ? blocks : -static_cast<int>(err);
-}
-
-// out[i] = x[i] * 2 mod 2^32: the vector kernel of `design` (0 stream,
-// 1 bulk with tiles of `tile` bytes, 2 blocked) over the first nvec
+// out[i] = x[i] * 2 mod 2^32: the vector kernel over the first nvec
 // 16-byte vectors on `grid` CTAs (skipped when nvec or grid is 0), then
 // the scalar kernel over [start, n) on `scalar_grid` CTAs (skipped when
-// start >= n). Returns 0 on success, -1 on an unknown design, or the
-// cudaError_t code of a refused launch.
-extern "C" int double_u32_launch(int design, const void* x, void* out,
-                                 long long nvec, int grid, int tile,
-                                 long long start, long long n,
+// start >= n). Returns 0 on success or the cudaError_t code of a refused
+// launch.
+extern "C" int double_u32_launch(const void* x, void* out, long long nvec,
+                                 int grid, long long start, long long n,
                                  int scalar_grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nvec > 0 && grid > 0) {
-    const uint4* xv = static_cast<const uint4*>(x);
-    uint4* ov = static_cast<uint4*>(out);
-    if (design == kStream) {
-      double_u32_stream<<<grid, kThreads, 0, s>>>(xv, ov, nvec);
-    } else if (design == kBlocked) {
-      double_u32_blocked<<<grid, kThreads, 0, s>>>(xv, ov, nvec);
-    } else if (design == kBulk) {
-      cudaError_t err = cudaFuncSetAttribute(
-          double_u32_bulk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kBulkSmem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      double_u32_bulk<<<grid, kThreads, kBulkSmem, s>>>(
-          static_cast<const unsigned char*>(x),
-          static_cast<unsigned char*>(out), nvec * 16, tile);
-    } else {
-      return -1;
-    }
+    double_u32_vec<<<grid, kThreads, 0, s>>>(
+        static_cast<const uint4*>(x), static_cast<uint4*>(out), nvec);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -20,10 +20,10 @@
 // computes the grid and the run of each CTA, and `staged_span` there
 // mirrors the span arithmetic below, so the CPU tests reach both.
 //
-// * A CTA of 256 threads takes a run of `run` consecutive indices, a
-//   multiple of the 4,096-index tile. In a tile each warp takes 512
-//   indices. It reads them as coalesced 16-byte vectors with a streaming
-//   hint (ld.global.cs: read once, so evict first and leave L2 to the
+// * A CTA of 256 threads takes a run of `run` consecutive indices: two
+//   tiles of 4,096 (runs of 1 or 4 tiles were no faster at any shape the
+//   port runs, PERF.md). In a tile each warp takes 512 indices. It
+//   reads them as coalesced 16-byte vectors with a streaming hint (ld.global.cs: read once, so evict first and leave L2 to the
 //   table), gathers each value, and writes it into a per-warp buffer in
 //   shared memory. Then each lane stores 16 consecutive outputs with
 //   16-byte stores: one for a u8 table, four for u32, rotated over the
@@ -31,15 +31,14 @@
 // * Misses are counted per element against the base of its reference
 //   block, which each thread caches for the block it is in: one division
 //   and one load of idx[b*block] per block a lane enters.
-// * Two ways to read the table (`staged`):
-//   - direct: __ldg. A monotone idx makes neighbouring lanes read
-//     neighbouring entries, which L1 serves.
-//   - staged: the CTA reads idx at both ends of its run; one thread
-//     copies the table span between them (16-byte aligned, at most
-//     `budget` bytes) into shared memory with one 1-D bulk copy (the TMA)
-//     that completes on an mbarrier, while every thread loads its first
-//     indices. Entries outside the span (a span wider than the budget, a
-//     non-monotone idx, a table off 16-byte alignment) come from __ldg.
+// * The table span is staged: the CTA reads idx at both ends of its run;
+//   one thread copies the table span between them (16-byte aligned, at
+//   most `budget` bytes) into shared memory with one 1-D bulk copy (the
+//   TMA) that completes on an mbarrier, while every thread loads its
+//   first indices. Entries outside the span (a span wider than the
+//   budget, a non-monotone idx, a table off 16-byte alignment) come from
+//   __ldg. Reading every entry through __ldg instead, which L1 serves for
+//   a monotone idx, was 5-16% slower on an H100 (PERF.md).
 // * A tile that is not whole, or an idx or out off 16-byte alignment,
 //   takes the scalar path: one index per thread, plain loads and stores.
 //
@@ -68,7 +67,7 @@ struct Args {
   long long block, window, nwin;
   long long run;     // indices per CTA, a multiple of kTile
   int vector;        // idx and out are 16-byte aligned
-  long long budget;  // staged: shared-memory bytes for the span, else 0
+  long long budget;  // shared-memory bytes for the span
 };
 
 __device__ __forceinline__ long long floor_div(long long a, long long b) {
@@ -154,7 +153,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-template <typename T, typename I, bool kStaged>
+template <typename T, typename I>
 __global__ void __launch_bounds__(kThreads)
 window_gather_kernel(const Args a) {
   // [span: a.budget bytes][per-warp buffers: kWarps * kWarpElems * T]
@@ -174,10 +173,10 @@ window_gather_kernel(const Args a) {
   };
 
   // The span [span_lo, span_lo + span_len) of table entries in shared
-  // memory (staged only). ops/window_gather.py staged_span mirrors this.
+  // memory. ops/window_gather.py staged_span mirrors this.
   long long span_lo = 0, span_len = 0;
   const uint32_t bar_addr = smem_addr(&bar);
-  if (kStaged) {
+  {
     const long long tb = sizeof(T);
     const long long lo = in_table(idx[start]), hi = in_table(idx[stop - 1]);
     if ((reinterpret_cast<uintptr_t>(table) & 15) == 0 && hi >= lo) {
@@ -215,14 +214,12 @@ window_gather_kernel(const Args a) {
   const T* span = reinterpret_cast<const T*>(smem);
   auto read = [&](long long v) -> T {
     const long long c = in_table(v);
-    if (kStaged) {
-      const long long o = c - span_lo;
-      if (o >= 0 && o < span_len) return span[o];
-    }
+    const long long o = c - span_lo;
+    if (o >= 0 && o < span_len) return span[o];
     return __ldg(table + c);
   };
   auto wait_span = [&]() {
-    if (kStaged && !ready) {
+    if (!ready) {
       mbar_wait(bar_addr, 0);
       ready = true;
     }
@@ -307,9 +304,8 @@ window_gather_kernel(const Args a) {
 }
 
 template <typename T, typename I>
-int launch(int staged, const Args& a, int grid, int smem, cudaStream_t stream) {
-  void (*kern)(const Args) = staged ? &window_gather_kernel<T, I, true>
-                                    : &window_gather_kernel<T, I, false>;
+int launch(const Args& a, int grid, int smem, cudaStream_t stream) {
+  void (*kern)(const Args) = &window_gather_kernel<T, I>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -318,10 +314,10 @@ int launch(int staged, const Args& a, int grid, int smem, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch_idx(int idx_bytes, int staged, const Args& a, int grid, int smem,
+int launch_idx(int idx_bytes, const Args& a, int grid, int smem,
                cudaStream_t stream) {
-  if (idx_bytes == 4) return launch<T, int32_t>(staged, a, grid, smem, stream);
-  if (idx_bytes == 8) return launch<T, int64_t>(staged, a, grid, smem, stream);
+  if (idx_bytes == 4) return launch<T, int32_t>(a, grid, smem, stream);
+  if (idx_bytes == 8) return launch<T, int64_t>(a, grid, smem, stream);
   return -1;
 }
 
@@ -332,7 +328,7 @@ int launch_idx(int idx_bytes, int staged, const Args& a, int grid, int smem,
 // launch arithmetic (run, grid, vector, budget, smem) is the wrapper's
 // (ops/window_gather.py gather_plan). Returns 0 on success, a cudaError_t
 // code on a refused launch, -1 on an unsupported element size.
-extern "C" int window_gather_launch(int table_bytes, int idx_bytes, int staged,
+extern "C" int window_gather_launch(int table_bytes, int idx_bytes,
                                     const void* table, long long m,
                                     const void* idx, long long n, void* out,
                                     void* nmiss, long long block,
@@ -344,11 +340,11 @@ extern "C" int window_gather_launch(int table_bytes, int idx_bytes, int staged,
                nwin, run, vector, budget};
   switch (table_bytes) {
     case 1:
-      return launch_idx<uint8_t>(idx_bytes, staged, a, grid, smem, s);
+      return launch_idx<uint8_t>(idx_bytes, a, grid, smem, s);
     case 2:
-      return launch_idx<uint16_t>(idx_bytes, staged, a, grid, smem, s);
+      return launch_idx<uint16_t>(idx_bytes, a, grid, smem, s);
     case 4:
-      return launch_idx<uint32_t>(idx_bytes, staged, a, grid, smem, s);
+      return launch_idx<uint32_t>(idx_bytes, a, grid, smem, s);
     default:
       return -1;
   }

@@ -19,102 +19,49 @@ the benchmark's default N, a multiple of that, the two agree).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
 
 import torch
 
 from gamesmanmpi_tpu_torch import kernels
 from gamesmanmpi_tpu_torch.core.codec import i64_to_u32, u32_to_i64
 
-#: The CUDA source's constants (kThreads, kUnroll, kBlockedVecs,
-#: kTileBytes, kStages).
+#: The CUDA source's constants (kThreads, kVecs): threads per CTA and
+#: 16-byte vectors per thread of the vector kernel.
 THREADS = 256
-UNROLL = 4
-BLOCKED_VECS = 2
-TILE_BYTES = 32 * 1024
-STAGES = 4
-#: Vector-kernel designs, by the number the C interface takes: "stream"
-#: (persistent grid, UNROLL 16-byte loads in flight per thread), "bulk"
-#: (persistent grid, 1-D bulk copies through a ring of shared-memory
-#: stages) and "blocked" (one CTA per THREADS * BLOCKED_VECS vectors).
-DESIGNS = {"stream": 0, "bulk": 1, "blocked": 2}
-#: The fastest at N = 32M on an H100, in turns with the others and with
-#: x.view(torch.int32) * 2 (PERF.md, tools/torch_kernel_sweep.py).
-DESIGN = "blocked"
-#: Scalar-kernel CTAs per SM at most (2,048 threads: one SM's fill).
-SCALAR_CTAS_PER_SM = 8
+VECS = 2
+#: Scalar-kernel CTAs at most: about one fill of an H100 (132 SMs of 2,048
+#: threads); the kernel's grid-stride loop takes the rest.
+SCALAR_GRID_MAX = 1024
 
 
 @dataclass(frozen=True)
 class DoublePlan:
-    """One call's launches: the vector kernel of `design` over elements
-    [0, 4 * nvec) on `grid` CTAs, then the scalar kernel over
-    [start, n) on `scalar_grid` CTAs."""
+    """One call's launches: the vector kernel over elements [0, 4 * nvec)
+    on `grid` CTAs, then the scalar kernel over [start, n) on
+    `scalar_grid` CTAs."""
 
-    design: str
     n: int
     nvec: int
     grid: int
-    tile: int
     start: int
     scalar_grid: int
-    smem: int
 
 
-def double_plan(n: int, x_ptr: int, out_ptr: int, sms: int,
-                ctas_per_sm: int, design: str = DESIGN) -> DoublePlan:
+def double_plan(n: int, x_ptr: int, out_ptr: int) -> DoublePlan:
     """The launch arithmetic of one call on n elements.
 
     The vector kernel needs x and out 16-byte aligned; it then takes the
-    whole 16-byte vectors: "blocked" on one CTA per THREADS * BLOCKED_VECS
-    of them, "stream" and "bulk" on a persistent grid of at most the
-    resident CTAs (sms * ctas_per_sm), never more CTAs than they have work
-    for. The scalar kernel takes the rest: the n % 4 tail, or everything
-    when a pointer is off alignment.
+    whole 16-byte vectors, one CTA per THREADS * VECS of them. The scalar
+    kernel takes the rest: the n % 4 tail, or everything when a pointer is
+    off alignment.
     """
-    if design not in DESIGNS:
-        raise ValueError(f"design must be one of {sorted(DESIGNS)}, "
-                         f"got {design!r}")
     aligned = ((x_ptr | out_ptr) & 15) == 0
     nvec = n // 4 if aligned else 0
-    tile, smem = 0, 0
-    if design == "blocked":
-        grid = -(-nvec // (THREADS * BLOCKED_VECS))
-    elif design == "bulk":
-        smem = STAGES * TILE_BYTES
-        grid = min(-(-nvec * 16 // TILE_BYTES), sms * ctas_per_sm)
-        if grid:
-            # Equal tiles of at most TILE_BYTES, the same count for every
-            # CTA: no CTA runs a round the others do not.
-            per_cta = -(-nvec * 16 // (grid * TILE_BYTES))
-            tile = -(-nvec * 16 // (grid * per_cta * 16)) * 16
-    else:
-        grid = min(-(-nvec // THREADS), sms * ctas_per_sm)
     start = 4 * nvec
-    scalar_grid = min(-(-(n - start) // THREADS), SCALAR_CTAS_PER_SM * sms)
-    return DoublePlan(design=design, n=n, nvec=nvec, grid=grid, tile=tile,
-                      start=start, scalar_grid=scalar_grid, smem=smem)
-
-
-#: (device index, design) -> (SMs, resident CTAs per SM), asked once.
-_RESIDENT: Dict[Tuple[int, str], Tuple[int, int]] = {}
-
-
-def _resident(dev: torch.device, design: str) -> Tuple[int, int]:
-    key = (dev.index, design)
-    got = _RESIDENT.get(key)
-    if got is None:
-        from gamesmanmpi_tpu_torch.kernels import build
-
-        lib = build.load("double_u32")
-        with torch.cuda.device(dev):
-            occ = lib.double_u32_occupancy(DESIGNS[design])
-        if occ <= 0:
-            raise RuntimeError(f"double_u32 {design}: occupancy query "
-                               f"failed (code {-occ})")
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        got = _RESIDENT[key] = (sms, occ)
-    return got
+    return DoublePlan(n=n, nvec=nvec, grid=-(-nvec // (THREADS * VECS)),
+                      start=start,
+                      scalar_grid=min(-(-(n - start) // THREADS),
+                                      SCALAR_GRID_MAX))
 
 
 def _check(x):
@@ -128,12 +75,11 @@ def double_u32_ref(x: torch.Tensor) -> torch.Tensor:
     return i64_to_u32(u32_to_i64(x) * 2)
 
 
-def double_u32(x: torch.Tensor, design: str = DESIGN) -> torch.Tensor:
+def double_u32(x: torch.Tensor) -> torch.Tensor:
     """x uint32 [...] -> (2 * x) mod 2^32, uint32, same shape.
 
     On a CUDA tensor this launches the CUDA kernel (and counts the launch
     in kernels.LAUNCHES); on a CPU tensor it is the plain version.
-    `design` picks the vector kernel (DESIGNS); the default is the faster.
     """
     _check(x)
     if x.device.type == "cpu":
@@ -146,13 +92,11 @@ def double_u32(x: torch.Tensor, design: str = DESIGN) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    sms, occ = _resident(x.device, design)
-    p = double_plan(x.numel(), x.data_ptr(), out.data_ptr(), sms, occ, design)
+    p = double_plan(x.numel(), x.data_ptr(), out.data_ptr())
     lib = build.load("double_u32")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.double_u32_launch(DESIGNS[design], x.data_ptr(),
-                                 out.data_ptr(), p.nvec, p.grid, p.tile,
-                                 p.start, p.n, p.scalar_grid, stream)
+    code = lib.double_u32_launch(x.data_ptr(), out.data_ptr(), p.nvec,
+                                 p.grid, p.start, p.n, p.scalar_grid, stream)
     build.check("double_u32", code)
     kernels.LAUNCHES["double_u32"] += 1
     return out

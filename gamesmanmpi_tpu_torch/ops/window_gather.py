@@ -30,7 +30,7 @@ correctness: callers need no fallback.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -41,30 +41,21 @@ from gamesmanmpi_tpu_torch import kernels
 THREADS = 256
 LANE_ELEMS = 16
 TILE = THREADS * LANE_ELEMS
-#: Table reads: "direct" (__ldg) or "staged" (the run's span copied into
-#: shared memory by one bulk copy).
-DESIGNS = ("direct", "staged")
-#: The faster of the two at the dense path's shapes on an H100 (PERF.md,
-#: tools/torch_kernel_sweep.py).
-DESIGN = "staged"
-#: Tiles per CTA run, by design.
-TILES_PER_CTA = {"direct": 1, "staged": 2}
+#: Indices per CTA: two tiles, the fastest run on an H100 (PERF.md).
+RUN = 2 * TILE
 #: Staged span: two table entries per index of the run, at most 32 KiB
-#: (at a run of 8,192: two u8 entries or one u32 entry per index; the
-#: dense child gather drifts ~1.3 u8 entries per index, section 7b's
-#: sorted index 0.25 u32 entries).
+#: (two u8 entries or one u32 entry per index; the dense child gather
+#: drifts ~1.3 u8 entries per index, section 7b's sorted index 0.25 u32
+#: entries).
 SPAN_BUDGET_MAX = 32 * 1024
-#: Shared memory one CTA can have on an H100.
-SMEM_LIMIT = 227 * 1024
 
 
 @dataclass(frozen=True)
 class GatherPlan:
     """One launch: `grid` CTAs, CTA c taking indices run_bounds(plan, c);
     `vector` when idx and out are 16-byte aligned; `budget` bytes of
-    staged span (0: direct); `smem` dynamic shared bytes per CTA."""
+    staged span; `smem` dynamic shared bytes per CTA."""
 
-    design: str
     n: int
     run: int
     grid: int
@@ -73,27 +64,16 @@ class GatherPlan:
     smem: int
 
 
-def gather_plan(n: int, table_bytes: int, idx_ptr: int, out_ptr: int,
-                design: str = DESIGN,
-                tiles_per_cta: Optional[int] = None) -> GatherPlan:
+def gather_plan(n: int, table_bytes: int, idx_ptr: int,
+                out_ptr: int) -> GatherPlan:
     """The launch arithmetic for n indices into a table of `table_bytes`
     elements. The split is the kernel's own: `block` and `window` only
     define the miss count."""
-    if design not in DESIGNS:
-        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
-    tpc = TILES_PER_CTA[design] if tiles_per_cta is None else tiles_per_cta
-    if tpc <= 0:
-        raise ValueError(f"tiles_per_cta must be positive, got {tpc}")
-    run = tpc * TILE
-    budget = (min(2 * run * table_bytes, SPAN_BUDGET_MAX)
-              if design == "staged" else 0)
-    smem = budget + TILE * table_bytes  # + the per-warp output buffers
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{smem} B of shared memory per CTA; a CTA has "
-                         f"{SMEM_LIMIT}")
-    return GatherPlan(design=design, n=n, run=run, grid=-(-n // run),
+    budget = min(2 * RUN * table_bytes, SPAN_BUDGET_MAX)
+    return GatherPlan(n=n, run=RUN, grid=-(-n // RUN),
                       vector=((idx_ptr | out_ptr) & 15) == 0, budget=budget,
-                      smem=smem)
+                      # the span, then the per-warp output buffers
+                      smem=budget + TILE * table_bytes)
 
 
 def run_bounds(plan: GatherPlan, cta: int) -> Tuple[int, int]:
@@ -110,13 +90,13 @@ def tile_is_vector(plan: GatherPlan, t0: int) -> bool:
 
 def staged_span(plan: GatherPlan, first: int, last: int, m: int,
                 table_ptr: int, table_bytes: int) -> Tuple[int, int]:
-    """(span_lo, span_len) in table entries: what a staged CTA whose run
+    """(span_lo, span_len) in table entries: what a CTA whose run
     starts at index value `first` and ends at `last` copies into shared
     memory. 16-byte aligned at both ends, never past the table, at most
     plan.budget bytes; (0, 0) when nothing is staged."""
     tb = table_bytes
     lo, hi = min(max(first, 0), m - 1), min(max(last, 0), m - 1)
-    if plan.budget == 0 or table_ptr % 16 or hi < lo:
+    if table_ptr % 16 or hi < lo:
         return 0, 0
     b_lo = lo * tb // 16 * 16
     b_hi = min(-(-(hi + 1) * tb // 16) * 16, m * tb // 16 * 16,
@@ -178,15 +158,12 @@ def monotone_window_gather_ref(table, idx, block: int = 2048,
 
 
 def monotone_window_gather(table, idx, block: int = 2048,
-                           window: int = 8192, design: str = DESIGN,
-                           tiles_per_cta: Optional[int] = None):
+                           window: int = 8192):
     """table [M], idx [N] int32/int64 non-decreasing ->
     (out [N] table.dtype, nmiss int32 scalar tensor on the same device).
 
     On a CUDA tensor this launches the CUDA kernel (and counts the launch
     in kernels.LAUNCHES); on a CPU tensor it is the plain version.
-    `design` and `tiles_per_cta` pick the kernel's variant (gather_plan);
-    the defaults are the faster.
     """
     _check(table, idx, block, window)
     if table.device.type == "cpu":
@@ -202,15 +179,14 @@ def monotone_window_gather(table, idx, block: int = 2048,
     nmiss = torch.zeros((), dtype=torch.int32, device=table.device)
     if n == 0:
         return out, nmiss
-    p = gather_plan(n, table.element_size(), idx.data_ptr(), out.data_ptr(),
-                    design, tiles_per_cta)
+    p = gather_plan(n, table.element_size(), idx.data_ptr(), out.data_ptr())
     lib = build.load("window_gather")
     stream = torch.cuda.current_stream(table.device).cuda_stream
     code = lib.window_gather_launch(
-        table.element_size(), idx.element_size(), int(p.design == "staged"),
-        table.data_ptr(), m, idx.data_ptr(), n, out.data_ptr(),
-        nmiss.data_ptr(), block, window, padded_table_len(m, window) // window,
-        p.run, p.grid, int(p.vector), p.budget, p.smem, stream)
+        table.element_size(), idx.element_size(), table.data_ptr(), m,
+        idx.data_ptr(), n, out.data_ptr(), nmiss.data_ptr(), block, window,
+        padded_table_len(m, window) // window, p.run, p.grid, int(p.vector),
+        p.budget, p.smem, stream)
     build.check("monotone_window_gather", code)
     kernels.LAUNCHES["monotone_window_gather"] += 1
     return out, nmiss

@@ -17,7 +17,6 @@ import torch
 from gamesmanmpi_tpu_torch import kernels
 from gamesmanmpi_tpu_torch.games import get_game
 from gamesmanmpi_tpu_torch.ops import window_gather as port
-from gamesmanmpi_tpu_torch.ops.elementwise import DESIGNS as DOUBLE_DESIGNS
 from gamesmanmpi_tpu_torch.ops.elementwise import double_u32, double_u32_ref
 from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
 from gamesmanmpi_tpu_torch.solve.engine import Solver
@@ -45,9 +44,9 @@ def _table(rng, m, tdtype, offset=0):
     return t.view(tdtype)[offset:]
 
 
-def _gather_matches(t, i, block=2048, window=8192, **kw):
+def _gather_matches(t, i, block=2048, window=8192):
     before = kernels.LAUNCHES["monotone_window_gather"]
-    out, nmiss = port.monotone_window_gather(t, i, block, window, **kw)
+    out, nmiss = port.monotone_window_gather(t, i, block, window)
     ref, nref = port.monotone_window_gather_ref(t, i, block, window)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["monotone_window_gather"] == before + 1
@@ -58,10 +57,9 @@ def _gather_matches(t, i, block=2048, window=8192, **kw):
     return int(nmiss)
 
 
-@pytest.mark.parametrize("design", port.DESIGNS)
 @pytest.mark.parametrize("tdtype", [torch.uint8, torch.uint32])
 @pytest.mark.parametrize("idtype", [torch.int32, torch.int64])
-def test_kernel_matches_plain_version(tdtype, idtype, design):
+def test_kernel_matches_plain_version(tdtype, idtype):
     _need_card()
     rng = np.random.default_rng(0)
     m = 1 << 18
@@ -74,7 +72,7 @@ def test_kernel_matches_plain_version(tdtype, idtype, design):
                              m - 1)
         i = torch.from_numpy(idx).to(idtype).cuda()
         for block, window in ((256, 1024), (2048, 8192)):
-            _gather_matches(t, i, block, window, design=design)
+            _gather_matches(t, i, block, window)
 
 
 EDGE_N = [1, 15, 16, 17, 2047, 2049, 5000, (1 << 20) + 3]
@@ -83,10 +81,9 @@ EDGE_N = [1, 15, 16, 17, 2047, 2049, 5000, (1 << 20) + 3]
 @pytest.mark.parametrize("case", ["aligned", "idx_off", "table_off",
                                   "wide_span", "clamp"])
 @pytest.mark.parametrize("n", EDGE_N)
-@pytest.mark.parametrize("design", port.DESIGNS)
 @pytest.mark.parametrize("tdtype", [torch.uint8, torch.uint32])
 @pytest.mark.parametrize("idtype", [torch.int32, torch.int64])
-def test_gather_edge_cases(idtype, tdtype, design, n, case):
+def test_gather_edge_cases(idtype, tdtype, n, case):
     """Ragged lengths around the 16-index lane and the 2,048 block, views
     one entry off 16-byte alignment (idx: the scalar path; table: no
     staging), a span far wider than the staging budget, and indices
@@ -110,21 +107,21 @@ def test_gather_edge_cases(idtype, tdtype, design, n, case):
     if case == "idx_off":
         i = torch.cat([i[:1], i]).contiguous()[1:]
         assert i.data_ptr() % 16
-    _gather_matches(t, i, design=design)
+    _gather_matches(t, i)
 
 
-@pytest.mark.parametrize("tiles_per_cta", [1, 2, 4])
-@pytest.mark.parametrize("design", port.DESIGNS)
-def test_gather_run_lengths(design, tiles_per_cta):
+@pytest.mark.parametrize("runs", [1, 5])
+def test_gather_whole_and_ragged_runs(runs):
+    """Whole runs of port.RUN indices, and a ragged last run."""
     _need_card()
     rng = np.random.default_rng(7)
     m = 1 << 20
     t = _table(rng, m, torch.uint8)
-    n = 5 * port.TILE * tiles_per_cta + 7
-    idx = np.minimum(np.cumsum(rng.integers(0, 3, size=n)), m - 1)
-    for idtype in (torch.int32, torch.int64):
-        i = torch.from_numpy(idx).to(idtype).cuda()
-        _gather_matches(t, i, design=design, tiles_per_cta=tiles_per_cta)
+    for n in (runs * port.RUN, runs * port.RUN + 7):
+        idx = np.minimum(np.cumsum(rng.integers(0, 3, size=n)), m - 1)
+        for idtype in (torch.int32, torch.int64):
+            i = torch.from_numpy(idx).to(idtype).cuda()
+            _gather_matches(t, i)
 
 
 def test_dense_solve_on_card_matches_cpu():
@@ -138,10 +135,9 @@ def test_dense_solve_on_card_matches_cpu():
         np.testing.assert_array_equal(card.cells[L], cells)
 
 
-@pytest.mark.parametrize("design", list(DOUBLE_DESIGNS))
 @pytest.mark.parametrize("n", [1, 3, 1023, 1 << 20, (1 << 20) + 1]
                          + [k for k in EDGE_N if k not in (1, 1 << 20)])
-def test_double_u32_kernel_matches_plain_version(n, design):
+def test_double_u32_kernel_matches_plain_version(n):
     _need_card()
     rng = np.random.default_rng(n)
     x = rng.integers(0, 1 << 32, size=n + 1, dtype=np.uint64).astype(np.uint32)
@@ -149,7 +145,7 @@ def test_double_u32_kernel_matches_plain_version(n, design):
     t = torch.from_numpy(x.view(np.int32)).cuda().view(torch.uint32)
     for view in (t[:n], t[1:]):  # aligned, and one element in (scalar path)
         before = kernels.LAUNCHES["double_u32"]
-        out = double_u32(view, design)
+        out = double_u32(view)
         ref = double_u32_ref(view)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["double_u32"] == before + 1

@@ -91,71 +91,37 @@ def _emulate_double(plan):
     """Times each element is written by the launches of `plan`, following
     the loops of kernels/csrc/double_u32.cu."""
     hits = np.zeros(plan.n, np.int64)
-    if plan.nvec and plan.grid:
-        if plan.design == "stream":
-            stride = plan.grid * elementwise.THREADS
-            for g in range(stride):
-                i = g
-                while i + (elementwise.UNROLL - 1) * stride < plan.nvec:
-                    for u in range(elementwise.UNROLL):
-                        v = i + u * stride
-                        hits[4 * v:4 * v + 4] += 1
-                    i += elementwise.UNROLL * stride
-                while i < plan.nvec:
-                    hits[4 * i:4 * i + 4] += 1
-                    i += stride
-        elif plan.design == "bulk":
-            nbytes = plan.nvec * 16
-            assert 0 < plan.tile <= elementwise.TILE_BYTES
-            ntiles = -(-nbytes // plan.tile)
-            counts = []
-            for cta in range(plan.grid):
-                counts.append(len(range(cta, ntiles, plan.grid)))
-                for t in range(cta, ntiles, plan.grid):
-                    b0 = t * plan.tile
-                    b1 = min(b0 + plan.tile, nbytes)
-                    assert b0 % 16 == 0 and (b1 - b0) % 16 == 0
-                    hits[b0 // 4:b1 // 4] += 1
-            assert max(counts) == min(counts)  # no CTA runs an extra round
-        else:
-            per = elementwise.THREADS * elementwise.BLOCKED_VECS
-            for cta in range(plan.grid):
-                for v in range(cta * per, min((cta + 1) * per, plan.nvec)):
-                    hits[4 * v:4 * v + 4] += 1
+    per = elementwise.THREADS * elementwise.VECS
+    for cta in range(plan.grid):
+        for v in range(cta * per, min((cta + 1) * per, plan.nvec)):
+            hits[4 * v:4 * v + 4] += 1
     stride = plan.scalar_grid * elementwise.THREADS
     for g in range(stride):
         hits[plan.start + g:plan.n:stride] += 1
     return hits
 
 
-@pytest.mark.parametrize("design", list(elementwise.DESIGNS))
-@pytest.mark.parametrize("offset", [0, 4])
-@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 4 * 8192 * 3 + 3, 100003])
-def test_double_plan_covers_every_element_once(n, offset, design):
-    # A small card (2 SMs, 3 resident CTAs each) so the persistent grid
-    # loops; offset 4 is a view one element in: no vector kernel.
-    plan = elementwise.double_plan(n, 1024 + offset, 4096, 2, 3, design)
+@pytest.mark.parametrize("x_off,out_off", [(0, 0), (4, 0), (0, 4)])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 4 * 8192 * 3 + 3, 100003,
+                               4 * 1024 * 256 + 1])
+def test_double_plan_covers_every_element_once(n, x_off, out_off):
+    # An offset of 4 is a view one element in: no vector kernel. The
+    # largest n off alignment needs more than SCALAR_GRID_MAX CTAs, so the
+    # scalar kernel's grid-stride loop goes round.
+    plan = elementwise.double_plan(n, 1024 + x_off, 4096 + out_off)
     assert (_emulate_double(plan) == 1).all()
-    assert plan.nvec == (0 if offset else n // 4)
-    if design != "blocked":
-        assert plan.grid <= 2 * 3
+    assert plan.nvec == (0 if x_off or out_off else n // 4)
     assert (plan.grid > 0) == (plan.nvec > 0)
-    assert plan.scalar_grid <= elementwise.SCALAR_CTAS_PER_SM * 2
+    assert 0 <= plan.scalar_grid <= elementwise.SCALAR_GRID_MAX
     assert (plan.scalar_grid > 0) == (plan.start < n)
 
 
-@pytest.mark.parametrize("design", list(elementwise.DESIGNS))
-def test_double_plan_grid_fills_the_card_once(design):
-    plan = elementwise.double_plan(32 << 20, 0, 0, 132, 8, design)
-    assert plan.grid == ((8 << 20) // 512 if design == "blocked"
-                         else 132 * 8)
+def test_double_plan_at_the_microbench_size():
+    """32M aligned: the vector kernel alone, one CTA per 512 vectors."""
+    plan = elementwise.double_plan(32 << 20, 0, 0)
+    assert plan.grid == (8 << 20) // 512
     assert plan.start == 32 << 20
     assert plan.scalar_grid == 0
-    assert plan.smem <= 227 * 1024
-    assert plan.smem == (elementwise.STAGES * elementwise.TILE_BYTES
-                         if design == "bulk" else 0)
-    with pytest.raises(ValueError):
-        elementwise.double_plan(16, 0, 0, 132, 8, "tma")
 
 
 def test_run_yields_every_section():

@@ -195,19 +195,23 @@ def _emulate_kernel(table, idx, block, window, plan, table_ptr=0):
     return out, nmiss, covered
 
 
-@pytest.mark.parametrize("design", port.DESIGNS)
-@pytest.mark.parametrize("tiles_per_cta", [None, 1, 3])
-@pytest.mark.parametrize("n", [1, 15, 4095, 4096, 4097, 3 * 8192 + 5])
-def test_plan_covers_every_index_once(n, tiles_per_cta, design):
-    plan = port.gather_plan(n, 1, 0, 0, design, tiles_per_cta)
+@pytest.mark.parametrize("idx_off", [0, 8])
+@pytest.mark.parametrize("n", [1, 15, 4095, 4096, 4097, 8191, 8192, 8193,
+                               3 * 8192 + 5])
+def test_plan_covers_every_index_once(n, idx_off):
+    # idx_off 8: an int64 idx view one element in, so every tile is scalar.
+    plan = port.gather_plan(n, 1, 256 + idx_off, 512)
+    assert plan.run == port.RUN == 2 * port.TILE
     covered = np.zeros(n, np.int64)
     for cta in range(plan.grid):
         start, stop = port.run_bounds(plan, cta)
         assert start < stop and start % port.TILE == 0
         covered[start:stop] += 1
         for t0 in range(start, stop, port.TILE):
-            # A vector tile is whole; the scalar path takes the rest.
-            assert port.tile_is_vector(plan, t0) == (t0 + port.TILE <= n)
+            # A vector tile is whole and aligned; the scalar path takes
+            # the rest.
+            assert port.tile_is_vector(plan, t0) == (
+                idx_off == 0 and t0 + port.TILE <= n)
     assert (covered == 1).all()
     assert port.run_bounds(plan, plan.grid)[0] >= n
 
@@ -241,39 +245,28 @@ def test_vector_tile_lane_mapping(idx_bytes, table_bytes):
     assert (loads == 1).all() and (stores == 1).all()
 
 
-@pytest.mark.parametrize("design", port.DESIGNS)
 @pytest.mark.parametrize("table_bytes", [1, 2, 4])
-@pytest.mark.parametrize("tiles_per_cta", [None, 1, 2, 4, 8])
-def test_plan_shared_memory_fits(tiles_per_cta, table_bytes, design):
-    plan = port.gather_plan(1 << 20, table_bytes, 0, 0, design,
-                            tiles_per_cta)
-    assert plan.smem <= port.SMEM_LIMIT == 227 * 1024
-    assert plan.budget % 16 == 0
+def test_plan_shared_memory_fits(table_bytes):
+    """Span budget plus per-warp buffers: at most 48 KiB, within the
+    227 KiB a CTA can have on an H100, and 4 CTAs fit on an SM."""
+    plan = port.gather_plan(1 << 20, table_bytes, 0, 0)
+    assert plan.smem <= 48 * 1024 and 4 * plan.smem <= 227 * 1024
+    assert 0 < plan.budget <= port.SPAN_BUDGET_MAX and plan.budget % 16 == 0
+    assert plan.budget >= plan.run * table_bytes  # one entry per index
     assert plan.smem == plan.budget + port.TILE * table_bytes
-    assert (plan.budget > 0) == (design == "staged")
-
-
-def test_plan_refuses_more_shared_memory_than_a_cta_has(monkeypatch):
-    monkeypatch.setattr(port, "SPAN_BUDGET_MAX", port.SMEM_LIMIT)
-    with pytest.raises(ValueError, match="shared memory"):
-        port.gather_plan(1 << 20, 4, 0, 0, "staged", tiles_per_cta=64)
 
 
 def test_plan_vector_path_needs_both_pointers_aligned():
     assert port.gather_plan(8192, 1, 256, 512).vector
     assert not port.gather_plan(8192, 1, 256 + 8, 512).vector  # idx view
     assert not port.gather_plan(8192, 1, 256, 512 + 4).vector  # out view
-    with pytest.raises(ValueError):
-        port.gather_plan(8192, 1, 0, 0, design="tma")
-    with pytest.raises(ValueError):
-        port.gather_plan(8192, 1, 0, 0, tiles_per_cta=0)
 
 
 @pytest.mark.parametrize("table_bytes", [1, 2, 4])
 @pytest.mark.parametrize("seed", range(4))
 def test_staged_span_is_aligned_inside_table_and_budget(seed, table_bytes):
     rng = np.random.default_rng(seed)
-    plan = port.gather_plan(1 << 16, table_bytes, 0, 0, "staged")
+    plan = port.gather_plan(1 << 16, table_bytes, 0, 0)
     for _ in range(200):
         m = int(rng.integers(1, 1 << 16))
         first = int(rng.integers(-50, m + 50))
@@ -289,30 +282,28 @@ def test_staged_span_is_aligned_inside_table_and_budget(seed, table_bytes):
         end16 = m * table_bytes // 16 * 16 // table_bytes
         if (c_last - lo + 1) * table_bytes <= plan.budget and c_last < end16:
             assert c_last < lo + ln  # the whole run's span is held
-    # Nothing staged for the direct design or a table off 16-byte alignment.
-    direct = port.gather_plan(1 << 16, table_bytes, 0, 0, "direct")
-    assert port.staged_span(direct, 0, 100, 1000, 0, table_bytes) == (0, 0)
+    # Nothing staged for a table off 16-byte alignment, or a run whose
+    # ends are out of order.
     assert port.staged_span(plan, 0, 100, 1000, 4, table_bytes) == (0, 0)
+    assert port.staged_span(plan, 100, 0, 1000, 0, table_bytes) == (0, 0)
 
 
-@pytest.mark.parametrize("design", port.DESIGNS)
+@pytest.mark.parametrize("tdtype", [np.uint8, np.uint32])
 @pytest.mark.parametrize("block,window", [(2048, 8192), (256, 1024),
                                           (100, 512)])
 @pytest.mark.parametrize("kind", ["hits", "misses"])
 @pytest.mark.parametrize("n", [1, 2049, 3 * 4096 + 17, 20000])
 def test_per_run_miss_accounting_matches_reference(n, kind, block, window,
-                                                   design):
+                                                   tdtype):
     """The kernel's per-run miss count, emulated over its own split,
     equals the reference's (_ok_mask plus the pad replicas); its values
     equal table[clip(idx)]."""
-    tdtype = np.uint8 if design == "direct" else np.uint32
     table, idx = _case(1 << 16, n, n + block, tdtype=tdtype,
                        idtype=np.int64,
                        span=3 if kind == "hits" else None)
     if kind == "misses":
         idx[: max(n // 50, 1)] = -7  # a clamped head, missing its window
-    plan = port.gather_plan(n, table.itemsize, 0, 0, design,
-                            tiles_per_cta=2)
+    plan = port.gather_plan(n, table.itemsize, 0, 0)
     out, nmiss, covered = _emulate_kernel(table, idx, block, window, plan)
     assert (covered == 1).all()
     np.testing.assert_array_equal(out, table[np.clip(idx, 0,
