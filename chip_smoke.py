@@ -47,6 +47,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              69,763,700 positions, TIE, remoteness 25, no lookup misses,
              and the same (value, remoteness) as the dense solve for 2,000
              sampled positions.
+10. checkpoint classic 5x5 — `solve connect4:w=5,h=5 --checkpoint-dir D`
+             (auto routes a checkpointed solve to the classic engine):
+             in-process, uninterrupted, with the default DEFLATE and with
+             plain files (GAMESMAN_CKPT_COMPRESS=0, what DEFLATE costs of
+             the seal time); then in a child process killed by
+             GAMESMAN_FAULTS=engine.backward:kill:13 (exit 77), rerun on D
+             (69,763,700 / TIE / 25; every level sealed before the kill
+             keeps its mtime and crc, so it was loaded, not recomputed),
+             every level file equal member for member to phase 9's tables,
+             and `--no-tables --checkpoint-dir D --query` on 312 sampled
+             positions answering as phase 9's `lookup`.
+11. checkpoint dense 5x5 — `solve connect4:w=5,h=5 --engine dense
+             --checkpoint-dir D2` in-process, uninterrupted, both ways (the
+             gather's launches counted); then in a child process, SIGKILLed once the
+             manifest lists 5 dense levels; the rerun on D2 resumes
+             (`levels_resumed` > 0), launches the window gather on the
+             levels it recomputes (`nmiss` counted there), and every
+             dense_NNNN.npz holds phase 6's cells byte for byte.
 
 Then the kernels line, the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or of the JAX
@@ -59,8 +77,14 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
+import pathlib
 import re
+import shutil
+import signal
+import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -434,6 +458,310 @@ def classic_5x5_phase(dense_result):
          peak_mem_bytes=s["peak_mem_bytes"], levels=s["levels"],
          provenance_levels=s["provenance_levels"], misses=s["misses"],
          dense_agreement_checked=checked)
+    return result
+
+
+#: The CLI in a child process: its report, then as the last line the
+#: solve's stats and the kernels' launch counts (reset just before).
+CHILD = """
+import json, sys
+from gamesmanmpi_tpu_torch import kernels
+from gamesmanmpi_tpu_torch.cli import solve_main
+kernels.reset_launches()
+rc, result = solve_main(sys.argv[1:])
+print(json.dumps({"rc": rc, "launches": dict(kernels.LAUNCHES),
+                  "stats": None if result is None else result.stats},
+                 default=str), flush=True)
+sys.exit(rc)
+"""
+
+REPO = pathlib.Path(__file__).resolve().parent
+C55 = "connect4:w=5,h=5"
+
+
+def child(argv, env=None):
+    """Popen of the CLI child, from the repository root."""
+    return subprocess.Popen(
+        [sys.executable, "-c", CHILD, *argv], cwd=REPO,
+        env=dict(os.environ, **(env or {})), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def stop(proc) -> None:
+    """Kill a child still running (on an error or a timeout)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def run_child(argv, want_rc, env=None):
+    """Run the CLI child to its end: -> (report lines, last-line record,
+    seconds); raises unless it exits want_rc."""
+    t0 = time.perf_counter()
+    proc = child(argv, env)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        stop(proc)
+    secs = time.perf_counter() - t0
+    if proc.returncode != want_rc:
+        raise AssertionError(f"child {argv} exited {proc.returncode}, not "
+                             f"{want_rc}:\n{out[-2000:]}\n{err[-4000:]}")
+    lines = out.splitlines()
+    rec = json.loads(lines[-1]) if want_rc == 0 else None
+    return lines, rec, secs
+
+
+def report_answer(lines):
+    got = {ln.split(":")[0]: ln.split(": ", 1)[1] for ln in lines
+           if ln.startswith(("positions:", "value:", "remoteness:"))}
+    return int(got["positions"]), got["value"], int(got["remoteness"])
+
+
+def disk_bytes(d):
+    return sum(p.stat().st_size for p in pathlib.Path(d).iterdir())
+
+
+def manifest(d):
+    return json.loads((pathlib.Path(d) / "manifest.json").read_text())
+
+
+@contextlib.contextmanager
+def plain_npz():
+    """GAMESMAN_CKPT_COMPRESS=0 for the block: every checkpoint file a
+    plain npz, so a run shows what DEFLATE costs of the seal time."""
+    old = os.environ.get("GAMESMAN_CKPT_COMPRESS")
+    os.environ["GAMESMAN_CKPT_COMPRESS"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GAMESMAN_CKPT_COMPRESS"]
+        else:
+            os.environ["GAMESMAN_CKPT_COMPRESS"] = old
+
+
+def uninterrupted(argv, d, answer):
+    """An uninterrupted checkpointed CLI solve in-process, then its
+    directory's bytes on disk (the directory is removed): -> (stats,
+    disk bytes)."""
+    result, report = cli_solve([*argv, "--checkpoint-dir", str(d)])
+    if report_answer(report) != answer:
+        raise AssertionError(f"checkpointed {argv}: {report}")
+    disk = disk_bytes(d)
+    shutil.rmtree(d)
+    return result.stats, disk
+
+
+def seal_fields(s, disk):
+    return dict(secs_forward=s["secs_forward"],
+                secs_backward=s["secs_backward"],
+                ckpt_bytes_raw=s["ckpt_bytes_raw"],
+                ckpt_bytes_stored=s["ckpt_bytes_stored"],
+                ckpt_save_secs=s["ckpt_save_secs"], disk_bytes=disk,
+                io_wait_secs=s["io_wait_secs"],
+                peak_mem_bytes=s.get("peak_mem_bytes"))
+
+
+def checkpoint_classic_phase(result, tmp, spec=C55,
+                             answer=(69763700, "TIE", 25), extra=()):
+    """Phase 10: the classic engine's checkpoint on the card. `result` is
+    the uninterrupted solve of `spec` (phase 9's); `extra` CLI arguments
+    (`--device cpu`) rehearse the phase on the CPU at a small board."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch.core.bitops import to_reference
+    from gamesmanmpi_tpu_torch.core.codec import pack_cells_np
+    from gamesmanmpi_tpu_torch.core.values import value_name
+    from gamesmanmpi_tpu_torch.store import file_crc32, read_npz_members
+
+    t0 = time.perf_counter()
+    # Uninterrupted, in-process: what sealing costs the solve, with the
+    # default DEFLATE below 64 MB and with plain files.
+    s0, full_disk = uninterrupted(["solve", spec, *extra],
+                                  tmp / "classic_full", answer)
+    if s0["engine"] != "classic":
+        raise AssertionError(f"checkpointed {spec} ran {s0['engine']}")
+    with plain_npz():
+        s_plain, plain_disk = uninterrupted(["solve", spec, *extra],
+                                            tmp / "classic_plain", answer)
+
+    d = tmp / "classic"
+    argv = ["solve", spec, "--checkpoint-dir", str(d), *extra]
+    nlev = len(result.levels)
+    kill = nlev // 2  # the backward's 13th level of 26: level 13
+    _, _, secs_killed = run_child(
+        argv, 77, {"GAMESMAN_FAULTS": f"engine.backward:kill:{kill}"})
+    m = manifest(d)
+    sealed = sorted(m["levels"])
+    if sealed != list(range(nlev - kill + 1, nlev)) \
+            or not m.get("frontiers_complete"):
+        raise AssertionError(f"killed run sealed levels {sealed}, frontiers "
+                             f"complete {m.get('frontiers_complete')}")
+    before = {k: ((d / f"level_{k:04d}.npz").stat().st_mtime_ns,
+                  m["crc"][f"level_{k:04d}.npz"]) for k in sealed}
+    lines, rec, secs_resumed = run_child(argv, 0)
+    if report_answer(lines) != answer:
+        raise AssertionError(f"resumed classic {spec}: {lines}")
+    m = manifest(d)
+    for k, (mtime, crc) in before.items():
+        name = f"level_{k:04d}.npz"
+        now = ((d / name).stat().st_mtime_ns, m["crc"][name])
+        if now != (mtime, crc) or file_crc32(d / name) != crc:
+            raise AssertionError(f"{name} was rewritten by the resume")
+    if sorted(m["levels"]) != list(range(nlev)):
+        raise AssertionError(f"resume sealed {sorted(m['levels'])}")
+    # Every sealed level, member for member, against phase 9's tables.
+    g = result.game
+    for k, t in sorted(result.levels.items()):
+        states, cells = read_npz_members(d / f"level_{k:04d}.npz",
+                                         ("states", "cells"))
+        want_s = to_reference(t.states, g)
+        want_c = pack_cells_np(t.values, t.remoteness)
+        if states.dtype != want_s.dtype or cells.dtype != np.uint32 \
+                or not np.array_equal(states, want_s) \
+                or not np.array_equal(cells, want_c):
+            raise AssertionError(f"level {k} file differs from the "
+                                 "uninterrupted tables")
+    # Point queries answered from the directory (--no-tables), in level
+    # order so each level's file is read once.
+    rng = np.random.default_rng(7)
+    queries, want = [], []
+    for k, t in sorted(result.levels.items()):
+        for i in rng.integers(0, t.states.shape[0], size=12):
+            s = int(t.states[i])
+            queries.append(hex(s))
+            v, r = result.lookup(s)
+            want.append(f"query {hex(s)}: value={value_name(v)} "
+                        f"remoteness={r}")
+    qargs = [a for q in queries for a in ("--query", q)]
+    lines, qrec, secs_query = run_child(argv + ["--no-tables", *qargs], 0)
+    got = [ln for ln in lines if ln.startswith("query ")]
+    if got != want:
+        bad = [(a, b) for a, b in zip(got, want) if a != b][:3]
+        raise AssertionError(f"checkpoint queries differ: {bad}")
+    disk = disk_bytes(d)
+    s1, s2 = rec["stats"], qrec["stats"]
+    emit(f"checkpoint classic {spec}", positions=answer[0], value=answer[1],
+         remoteness=answer[2],
+         no_checkpoint=dict(secs_forward=result.stats["secs_forward"],
+                            secs_backward=result.stats["secs_backward"]),
+         uninterrupted=seal_fields(s0, full_disk),
+         uninterrupted_plain_npz=seal_fields(s_plain, plain_disk),
+         killed=dict(exit=77, levels_sealed=len(sealed), secs=secs_killed),
+         resumed=dict(secs=secs_resumed, secs_forward=s1["secs_forward"],
+                      secs_backward=s1["secs_backward"],
+                      ckpt_bytes_raw=s1["ckpt_bytes_raw"],
+                      ckpt_bytes_stored=s1["ckpt_bytes_stored"],
+                      ckpt_save_secs=s1["ckpt_save_secs"],
+                      io_wait_secs=s1["io_wait_secs"],
+                      sealed_levels_untouched=len(before)),
+         query=dict(positions=len(queries), secs=secs_query,
+                    secs_forward=s2["secs_forward"],
+                    secs_backward=s2["secs_backward"],
+                    io_wait_secs=s2["io_wait_secs"],
+                    ckpt_bytes_raw=s2["ckpt_bytes_raw"]),
+         disk_bytes=disk, levels_equal_tables=len(result.levels),
+         secs=time.perf_counter() - t0)
+
+
+def checkpoint_dense_phase(dense_result, tmp, spec=C55,
+                           answer=(69763700, "TIE", 25), extra=()):
+    """Phase 11: the dense engine's checkpoint on the card; the slice's
+    kernel path (the window gather on the recomputed levels).
+    `dense_result` is the uninterrupted solve of `spec` (phase 6's)."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch.store import read_npz_members
+
+    from gamesmanmpi_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    nlev = len(dense_result.cells)
+    on_card = "cpu" not in extra  # a CPU rehearsal takes the plain version
+    # Uninterrupted, in-process, launches counted: what sealing costs,
+    # with the default DEFLATE and with plain files.
+    kernels.reset_launches()
+    s0, full_disk = uninterrupted(["solve", spec, "--engine", "dense",
+                                   *extra], tmp / "dense_full", answer)
+    full_launches = kernels.LAUNCHES["monotone_window_gather"]
+    if (full_launches > 0) != on_card:
+        raise AssertionError(f"checkpointed dense {spec}: {full_launches} "
+                             "gather launches")
+    with plain_npz():
+        s_plain, plain_disk = uninterrupted(["solve", spec, "--engine",
+                                             "dense", *extra],
+                                            tmp / "dense_plain", answer)
+
+    d = tmp / "dense"
+    argv = ["solve", spec, "--engine", "dense", "--checkpoint-dir", str(d),
+            *extra]
+    proc = child(argv)
+    try:
+        deadline = time.monotonic() + 600
+        listed = []
+        while proc.poll() is None and time.monotonic() < deadline:
+            try:
+                listed = manifest(d).get("dense_levels", [])
+            except FileNotFoundError:
+                listed = []
+            if len(listed) >= 5:
+                proc.send_signal(signal.SIGKILL)
+                break
+            time.sleep(0.002)
+        _, err = proc.communicate(timeout=60)
+    finally:
+        stop(proc)
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"dense child was not killed mid-solve: exit "
+                             f"{proc.returncode}, listed {listed}\n"
+                             f"{err[-4000:]}")
+    secs_killed = time.perf_counter() - t0
+    sealed = manifest(d)["dense_levels"]
+    if len(sealed) >= nlev:
+        raise AssertionError("the dense child sealed every level first")
+    lines, rec, secs_resumed = run_child(argv, 0)
+    s = rec["stats"]
+    if report_answer(lines) != answer:
+        raise AssertionError(f"resumed dense {spec}: {lines}")
+    # Levels K..25 were loaded; K-1..0 recomputed, each through the gather.
+    K = nlev - s["levels_resumed"]
+    if s["levels_resumed"] != len(sealed) or K <= 0:
+        raise AssertionError(f"levels_resumed {s['levels_resumed']} for "
+                             f"sealed {sorted(sealed)}")
+    launches = rec["launches"]["monotone_window_gather"]
+    nmiss = {int(L): v for L, v in s["gather_nmiss_per_level"].items()}
+    if (launches <= 0) == on_card or sorted(nmiss) != list(range(K)):
+        raise AssertionError(f"gather launches {launches}, nmiss counted on "
+                             f"levels {sorted(nmiss)}, recomputed 0..{K - 1}")
+    for L, cells in sorted(dense_result.cells.items()):
+        (got,) = read_npz_members(d / f"dense_{L:04d}.npz", ("cells",))
+        if got.dtype != np.uint8 or got.tobytes() != cells.tobytes():
+            raise AssertionError(f"dense_{L:04d}.npz differs from the "
+                                 "uninterrupted cells")
+    emit(f"checkpoint dense {spec}", positions=answer[0], value=answer[1],
+         remoteness=answer[2],
+         killed=dict(signal="SIGKILL", levels_sealed=len(sealed),
+                     secs=secs_killed),
+         resumed=dict(secs=secs_resumed, levels_resumed=s["levels_resumed"],
+                      secs_forward=s["secs_forward"],
+                      secs_backward=s["secs_backward"],
+                      secs_count_reachable=s["secs_count_reachable"],
+                      ckpt_bytes_raw=s["ckpt_bytes_raw"],
+                      ckpt_bytes_stored=s["ckpt_bytes_stored"],
+                      ckpt_save_secs=s["ckpt_save_secs"],
+                      io_wait_secs=s["io_wait_secs"],
+                      gather_launches=launches,
+                      gather_nmiss=s["gather_nmiss"]),
+         uninterrupted=dict(seal_fields(s0, full_disk),
+                            gather_launches=full_launches,
+                            gather_nmiss=s0["gather_nmiss"]),
+         uninterrupted_plain_npz=seal_fields(s_plain, plain_disk),
+         no_checkpoint=dict(
+             secs_backward=dense_result.stats["secs_backward"],
+             encodable_positions=dense_result.stats["encodable_positions"]),
+         disk_bytes=disk_bytes(d), cells_identical_levels=nlev,
+         secs=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -467,7 +795,14 @@ def main() -> int:
     dense_launches, dense_result = dense_5x5_phase()
     bench_launches = microbench_phase(dev)
     classic_small_phase()
-    classic_5x5_phase(dense_result)
+    classic_result = classic_5x5_phase(dense_result)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        checkpoint_classic_phase(classic_result, tmp)
+        del classic_result
+        checkpoint_dense_phase(dense_result, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     def row(name, source, replaces, launches, m):
         r = {"name": name, "route": "cuda", "source": source,

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the gamesmanmpi_tpu strong solver.
 
 A second package beside the JAX reference (``gamesmanmpi_tpu``): the same
-games, value algebra and dense Connect-4 engine, written against torch
-tensors, with the reference's one Pallas kernel (the monotone-window
-gather) rewritten by hand in CUDA C++ for Hopper (``kernels/csrc``).
+games, value algebra, classic and dense Connect-4 engines and their
+checkpoint/resume (in the reference's directory format), written against
+torch tensors, with the reference's Pallas kernels rewritten by hand in
+CUDA C++ for Hopper (``kernels/csrc``).
 
 Rules this package keeps (ROADMAP.md, "the port"):
 

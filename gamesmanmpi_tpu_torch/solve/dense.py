@@ -29,8 +29,14 @@ All tensors are int64 (bitboards, ranks, flat indices) or uint8 (cells);
 see core/bitops.py. The reference's TPU-only machinery is not carried
 over: the one-hot binomial select tree (the card indexes the [ncells+1, K]
 table directly), the relay run-ahead drain, background compiles. Not yet
-ported (ROADMAP): the mesh, the checkpointer, the counts file,
-_rank_all_moves_fused and the sorted gather mode.
+ported (ROADMAP): the mesh, the counts file, _rank_all_moves_fused and the
+sorted gather mode.
+
+Checkpoint/resume (``checkpointer=``), as in the reference: the directory
+is bound to ``<game>:dense``, each level's flat cells are sealed as they
+complete (``dense_NNNN.npz``), and a rerun rechains from the contiguous
+sealed run that ends at the top level, through the same path as
+``solve(resume_cells=...)``.
 """
 
 from __future__ import annotations
@@ -615,12 +621,14 @@ class DenseSolver:
     device: "cuda" (default) or "cpu"; a missing card raises
     DeviceUnavailable. gather_mode: "window" (the CUDA window-gather
     kernel on the card) or "plain". The reachability sweep that counts
-    positions runs once per board per process.
+    positions runs once per board per process. checkpointer: a
+    utils/checkpoint.LevelCheckpointer to seal levels into and resume
+    from.
     """
 
     def __init__(self, game: Connect4, store_tables: bool = True,
                  block_elems: Optional[int] = None, device="cuda",
-                 gather_mode: str = "window"):
+                 gather_mode: str = "window", checkpointer=None):
         if not isinstance(game, Connect4):
             raise TypeError("DenseSolver requires a Connect4-family game")
         if game.sym:
@@ -634,6 +642,7 @@ class DenseSolver:
                              f"got {gather_mode!r}")
         self.game = game
         self.store_tables = store_tables
+        self.checkpointer = checkpointer
         self.device = resolve_device(device)
         self.gather_mode = gather_mode
         self.tables = tables_for(game.width, game.height, game.connect)
@@ -750,6 +759,40 @@ class DenseSolver:
 
     # -- the solve ----------------------------------------------------------
 
+    def _checkpoint_resume(self) -> Optional[Dict[int, Optional[torch.Tensor]]]:
+        """Bind the checkpoint directory and read its contiguous sealed run
+        K..top as resume cells, or None when level top is not sealed.
+
+        Only K's file is read unless tables are kept (the rechain needs
+        K's cells alone); the others map to None. The save-then-manifest
+        order guarantees a listed level's file is complete. A level whose
+        cell count differs from the board's refuses a stale directory.
+        """
+        t, ckpt = self.tables, self.checkpointer
+        # ":dense" namespaces the binding: these are flat cell arrays, not
+        # the classic engine's tables; one directory never serves both.
+        ckpt.bind_game(self.game.name + ":dense")
+        completed = set(ckpt.dense_levels())
+        K = t.ncells + 1
+        while K - 1 in completed:
+            K -= 1
+        if K > t.ncells:
+            return None
+        out: Dict[int, Optional[torch.Tensor]] = {}
+        for L in range(K, t.ncells + 1):
+            if not self.store_tables and L != K:
+                out[L] = None
+                continue
+            P, C = len(t.profiles[L]), t.class_size[L]
+            cells = ckpt.load_dense_level(L)
+            if cells.shape[0] != P * C:
+                raise ValueError(
+                    f"checkpointed dense level {L} has {cells.shape[0]} "
+                    f"cells, expected {P * C} — stale checkpoint directory?")
+            out[L] = torch.from_numpy(
+                np.array(cells, dtype=np.uint8).reshape(P, C)).to(self.device)
+        return out
+
     def solve(self, resume_cells: Optional[Dict[int, torch.Tensor]] = None
               ) -> DenseSolveResult:
         """Run the backward sweep (then the reach count, once per board).
@@ -758,14 +801,22 @@ class DenseSolver:
         (e.g. cells_from_reference of a reference solve). The sweep
         rechains from the lowest level of the contiguous run that ends at
         the top level, as a resumed reference checkpoint does; those
-        levels are taken as given, not recomputed.
+        levels are taken as given, not recomputed. With a checkpointer the
+        resume cells come from its directory (a level mapped to None is
+        sealed but not read), and each computed level is sealed.
         """
-        g, t = self.game, self.tables
+        g, t, ckpt = self.game, self.tables, self.checkpointer
         nc = t.ncells
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.perf_counter()
+        if ckpt is not None:
+            if resume_cells is not None:
+                raise ValueError("pass resume_cells or a checkpointer, "
+                                 "not both")
+            ckpt.begin_solve()
+            resume_cells = self._checkpoint_resume()
         encodable_total = 0
         saved: Optional[Dict[int, np.ndarray]] = (
             {} if self.store_tables else None
@@ -782,12 +833,14 @@ class DenseSolver:
                     f"got levels {sorted(resume_cells)}")
             for L in range(K, nc + 1):
                 P, C = len(t.profiles[L]), t.class_size[L]
+                encodable_total += P * C
                 cells = resume_cells[L]
+                if cells is None:
+                    continue  # sealed, not read (no tables kept)
                 if tuple(cells.shape) != (P, C) or cells.dtype != torch.uint8:
                     raise ValueError(
                         f"resume level {L}: expected uint8 [{P}, {C}], got "
                         f"{cells.dtype} {tuple(cells.shape)}")
-                encodable_total += P * C
                 if saved is not None:
                     saved[L] = cells.cpu().numpy()
             child_flat = resume_cells[K].to(self.device).reshape(-1)
@@ -803,8 +856,12 @@ class DenseSolver:
             if nm is not None:
                 nmiss[L] = nm
             child_flat = level_cells.reshape(-1)
-            if saved is not None:
-                saved[L] = level_cells.cpu().numpy()
+            if saved is not None or ckpt is not None:
+                host = level_cells.cpu().numpy()  # one download per level
+                if saved is not None:
+                    saved[L] = host
+                if ckpt is not None:
+                    ckpt.save_dense_level(L, host)
 
         root_cell = int(child_flat[0])  # synchronises with the device
         value, remoteness = root_cell & 3, root_cell >> 2
@@ -851,5 +908,7 @@ class DenseSolver:
         if cuda:
             stats["peak_mem_bytes"] = torch.cuda.max_memory_allocated(
                 self.device)
+        if ckpt is not None:
+            stats.update(ckpt.solve_stats())
         stats["reachable_per_level"] = counted
         return DenseSolveResult(g, t, value, remoteness, saved, stats)

@@ -25,16 +25,27 @@ Two paths, as in the reference:
   host and the backward looks children up in a window of that many
   deeper levels.
 
+Checkpoint/resume (``checkpointer=``, utils/checkpoint.LevelCheckpointer),
+as in the reference's ``_solve_impl``: each forward level is sealed the
+moment its count is known and a complete forward is marked so; a resume
+skips a complete forward, or continues an interrupted one from its
+deepest sealed level (those levels carry no provenance, so the backward
+joins them by lookup); the backward loads every sealed level instead of
+resolving it, recomputes a quarantined one, and seals each level it
+resolves. Preemption checks (resilience/preempt.py) and fault points
+(resilience/faults.py) sit at the reference's level boundaries.
+
 What the port leaves out of the reference's machinery: background
 precompiles and power-of-two capacity buckets (they bound XLA's compiled
 shapes; eager torch runs every level at its exact size), speculation,
-heartbeat, status server, fault injection, memory guard, preemption,
-checkpoints and the fused/pingpong modes.
+heartbeat, status server, retries, memory guard and the fused/pingpong
+modes.
 
 Host synchronisation: one per forward level, inside ``torch.unique``
 (the unique count sizes the next level); the backward resolves in blocks
 of ``GAMESMAN_BACKWARD_BLOCK`` rows with no sync, and downloads a level's
-table when the result keeps it. Lookup misses and non-primitive
+table when the result keeps it or a checkpoint seals it (one ``.cpu()``
+per array per level). Lookup misses and non-primitive
 positions without moves are counted on the device (``stats["misses"]``,
 read once at the end) and raise per level only under ``paranoid``.
 """
@@ -55,6 +66,8 @@ from gamesmanmpi_tpu_torch.ops.combine import combine_children
 from gamesmanmpi_tpu_torch.ops.dedup import unique_tailed, with_sentinel_slot
 from gamesmanmpi_tpu_torch.ops.lookup import lookup_window
 from gamesmanmpi_tpu_torch.ops.provenance import gather_cells, uidx_from_inverse
+from gamesmanmpi_tpu_torch.resilience import faults, preempt
+from gamesmanmpi_tpu_torch.store import TORN_SEAL_ERRORS as TORN_NPZ_ERRORS
 from gamesmanmpi_tpu_torch.utils.device import resolve_device
 from gamesmanmpi_tpu_torch.utils.env import env_bool, env_int
 
@@ -243,13 +256,16 @@ class Solver:
     paranoid=True syncs each level's consistency counter and raises on a
     miss. use_provenance defaults to GAMESMAN_PROVENANCE (on); the
     backward block and the device-store budget come from
-    GAMESMAN_BACKWARD_BLOCK and GAMESMAN_DEVICE_STORE_MB.
+    GAMESMAN_BACKWARD_BLOCK and GAMESMAN_DEVICE_STORE_MB. checkpointer:
+    a utils/checkpoint.LevelCheckpointer to seal levels into and resume
+    from (with store_tables=False every level is still sealed).
     """
 
     def __init__(self, game: TensorGame, *, device="cuda",
                  paranoid: bool = False, store_tables: bool = True,
-                 use_provenance: Optional[bool] = None):
+                 use_provenance: Optional[bool] = None, checkpointer=None):
         self.game = game
+        self.checkpointer = checkpointer
         self.device = resolve_device(device)
         self.paranoid = paranoid
         self.store_tables = store_tables
@@ -259,6 +275,7 @@ class Solver:
         self.backward_block = _backward_block()
         self.device_store_bytes = env_int("GAMESMAN_DEVICE_STORE_MB", 8192) << 20
         self.provenance_levels = 0
+        self._completed: set = set()  # levels sealed in the checkpoint
 
     # ------------------------------------------------------------ helpers
 
@@ -303,16 +320,81 @@ class Solver:
                 f"num_levels={g.num_levels} — level_of/num_levels "
                 "inconsistent")
 
+    # ---------------------------------------------------------- checkpoint
+
+    def _load_sealed(self, k: int, host_states):
+        """Level k's sealed table, or None when it is not sealed or its
+        file is torn (then quarantined: the level recomputes). A sealed
+        table whose states differ from the discovered level's
+        (``host_states()``) means the directory is stale, and raises."""
+        ckpt = self.checkpointer
+        if ckpt is None or k not in self._completed:
+            return None
+        try:
+            table = ckpt.load_level(k)
+        except TORN_NPZ_ERRORS as e:
+            ckpt.quarantine_and_log(k, e)
+            return None
+        if not np.array_equal(table.states, host_states()):
+            raise SolverError(f"checkpointed level {k} does not match the "
+                              "discovered frontier — stale checkpoint "
+                              "directory?")
+        return table
+
+    def _finish_level(self, k: int, root: int, table: Optional[LevelTable],
+                      host_states, values, rem,
+                      resolved: Dict[int, LevelTable]) -> None:
+        """A backward level's host tail. `table` is the sealed table when
+        the level was loaded, None when it was resolved: then its table is
+        downloaded (one .cpu() per array) when the result keeps it or the
+        checkpoint seals it, and sealed."""
+        keep = self.store_tables or k == root
+        resolved_here = table is None
+        if resolved_here and (keep or self.checkpointer is not None):
+            table = LevelTable(host_states(), values.cpu().numpy(),
+                               rem.cpu().numpy())
+        if keep:
+            resolved[k] = table
+        if self.checkpointer is not None and resolved_here:
+            self.checkpointer.save_level(k, table)
+
     # ---------------------------------------------------------- fast path
 
-    def _forward_fast(self, init: int, start: int) -> Dict[int, _Level]:
-        """Device-resident forward sweep for uniform_level_jump games."""
-        g, dev = self.game, self.device
-        frontier = torch.tensor([init], dtype=torch.int64, device=dev)
-        levels = {start: _Level(1, dev=frontier)}
+    def _forward_fast(self, init: int, start: int,
+                      resume: Optional[Dict[int, np.ndarray]] = None
+                      ) -> Dict[int, _Level]:
+        """Device-resident forward sweep for uniform_level_jump games.
+
+        With a checkpointer each level's frontier is sealed the moment its
+        count is known (its host copy is kept for the backward). `resume`
+        is a previous run's sealed prefix: expansion continues from its
+        deepest level, and the earlier levels carry no provenance.
+        """
+        g, dev, ckpt = self.game, self.device, self.checkpointer
+        levels: Dict[int, _Level] = {}
+        if resume:
+            ks = sorted(resume)
+            if ks != list(range(start, ks[-1] + 1)):
+                raise SolverError(
+                    f"forward checkpoint levels {ks} are not contiguous from "
+                    f"the root level {start} — stale checkpoint directory?")
+            for kk in ks:
+                levels[kk] = _Level(resume[kk].shape[0], host=resume[kk])
+            k = ks[-1]
+            frontier = torch.from_numpy(levels[k].host).to(dev)
+            levels[k].dev = frontier
+        else:
+            k = start
+            frontier = torch.tensor([init], dtype=torch.int64, device=dev)
+            levels[k] = _Level(1, dev=frontier)
+            if ckpt is not None:
+                ckpt.save_frontier_level(k, levels[k].host_states())
         stored = frontier.numel() * 8
-        k = start
         while True:
+            # Level boundary: everything before this level is sealed.
+            preempt.check("forward", level=k)
+            faults.fire("engine.forward", level=k)
+            faults.fire("engine.dedup", level=k)
             rec = levels[k]
             states = rec.dev if rec.dev is not None else frontier
             if self.use_provenance:
@@ -336,6 +418,8 @@ class Solver:
             else:
                 stored += n * 8
             levels[k + 1] = nxt
+            if ckpt is not None:
+                ckpt.save_frontier_level(k + 1, nxt.host_states())
             frontier = uniq
             k += 1
         return levels
@@ -346,21 +430,27 @@ class Solver:
         resolved: Dict[int, LevelTable] = {}
         prev = None  # (states, values, remoteness) of level k+1 on device
         for k in sorted(levels, reverse=True):
+            preempt.check("backward", level=k)
             rec = levels[k]
             states = (rec.dev if rec.dev is not None
                       else torch.from_numpy(rec.host).to(dev))
-            if prev is not None and rec.uidx is not None:
-                values, rem, miss = self._resolve_blocked_prov(
-                    rec, prev[1], prev[2])
+            table = self._load_sealed(k, rec.host_states)
+            if table is not None:
+                values = torch.from_numpy(table.values).to(dev)
+                rem = torch.from_numpy(table.remoteness).to(dev)
             else:
-                window = [prev] if prev is not None else []
-                values, rem, miss = self._resolve_blocked(states, window)
-            misses.append(miss)
-            self._misses_check(k, miss)
+                faults.fire("engine.backward", level=k)
+                if prev is not None and rec.uidx is not None:
+                    values, rem, miss = self._resolve_blocked_prov(
+                        rec, prev[1], prev[2])
+                else:
+                    window = [prev] if prev is not None else []
+                    values, rem, miss = self._resolve_blocked(states, window)
+                misses.append(miss)
+                self._misses_check(k, miss)
             prev = (states, values, rem)
-            if self.store_tables or k == root:
-                resolved[k] = LevelTable(rec.host_states(), values.cpu().numpy(),
-                                         rem.cpu().numpy())
+            self._finish_level(k, root, table, rec.host_states, values, rem,
+                               resolved)
             # Release the forward copies and provenance of this level.
             rec.dev = rec.prim = rec.uidx = None
             if not self.store_tables:
@@ -377,6 +467,9 @@ class Solver:
             if k not in pools:
                 k += 1
                 continue
+            preempt.check("forward", level=k)
+            faults.fire("engine.forward", level=k)
+            faults.fire("engine.dedup", level=k)
             frontier = torch.from_numpy(pools[k]).to(dev)
             uniq, kid_levels = expand_with_levels(g, frontier)
             kids = uniq.cpu().numpy()
@@ -395,15 +488,21 @@ class Solver:
         resolved: Dict[int, LevelTable] = {}
         cache: Dict[int, tuple] = {}  # level -> device (states, values, rem)
         for k in sorted(pools, reverse=True):
+            preempt.check("backward", level=k)
             states = torch.from_numpy(pools[k]).to(dev)
-            window = [cache[k + j] for j in range(1, g.max_level_jump + 1)
-                      if k + j in cache]
-            values, rem, miss = self._resolve_blocked(states, window)
-            misses.append(miss)
-            self._misses_check(k, miss)
-            if self.store_tables or k == root:
-                resolved[k] = LevelTable(pools[k], values.cpu().numpy(),
-                                         rem.cpu().numpy())
+            table = self._load_sealed(k, lambda k=k: pools[k])
+            if table is not None:
+                values = torch.from_numpy(table.values).to(dev)
+                rem = torch.from_numpy(table.remoteness).to(dev)
+            else:
+                faults.fire("engine.backward", level=k)
+                window = [cache[k + j] for j in range(1, g.max_level_jump + 1)
+                          if k + j in cache]
+                values, rem, miss = self._resolve_blocked(states, window)
+                misses.append(miss)
+                self._misses_check(k, miss)
+            self._finish_level(k, root, table, lambda k=k: pools[k], values,
+                               rem, resolved)
             cache[k] = (states, values, rem)
             # Levels deeper than the lookback window are never read again.
             for done in [d for d in cache if d > k + g.max_level_jump]:
@@ -413,22 +512,43 @@ class Solver:
     # -------------------------------------------------------------- solve
 
     def solve(self) -> SolveResult:
-        g = self.game
+        g, ckpt = self.game, self.checkpointer
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.perf_counter()
+        saved, partial = None, {}
+        if ckpt is not None:
+            ckpt.begin_solve()
+            ckpt.bind_game(g.name, g.state_dtype)
+            saved = ckpt.load_frontiers()
+            if self.fast and saved is None:
+                # An interrupted forward left per-level frontier files.
+                partial = ckpt.load_forward_levels()
+        self._completed = (set(ckpt.completed_levels()) if ckpt is not None
+                           else set())
         init, start = canonical_scalar(g, g.initial_state())
         misses: List[torch.Tensor] = []
         if self.fast:
-            levels = self._forward_fast(init, start)
+            if saved is not None:
+                levels = {k: _Level(v.shape[0], host=v)
+                          for k, v in saved.items()}
+            else:
+                levels = self._forward_fast(init, start, resume=partial)
+                if ckpt is not None:
+                    ckpt.mark_frontiers_complete()
             t_forward = time.perf_counter() - t0
             num_positions = sum(rec.n for rec in levels.values())
             nlevels = len(levels)
             resolved = self._backward_fast(levels, start, misses)
         else:
-            pools = {start: np.array([init], dtype=np.int64)}
-            self._forward_generic(pools, start)
+            if saved is not None:
+                pools = saved
+            else:
+                pools = {start: np.array([init], dtype=np.int64)}
+                self._forward_generic(pools, start)
+                if ckpt is not None:
+                    ckpt.save_frontiers(pools)
             t_forward = time.perf_counter() - t0
             num_positions = sum(int(a.shape[0]) for a in pools.values())
             nlevels = len(pools)
@@ -461,6 +581,8 @@ class Solver:
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(self.device)
                                if cuda else None),
         }
+        if ckpt is not None:
+            stats.update(ckpt.solve_stats())
         return SolveResult(g, int(root.values[i]), int(root.remoteness[i]),
                            resolved, stats)
 

@@ -29,6 +29,21 @@ def env_int(name: str, default: int) -> int:
         return default
 
 
+def env_float(name: str, default: float) -> float:
+    """Numeric knob; a malformed value warns and gives the default."""
+    raw = os.environ.get(name, str(default))
+    try:
+        return float(raw)
+    except ValueError:
+        warnings.warn(f"{name}={raw!r} is not a number; using {default}")
+        return default
+
+
+def env_str(name: str, default: str) -> str:
+    """The variable's value, or `default` when it is unset."""
+    return os.environ.get(name, default)
+
+
 def env_bool(name: str, default: bool) -> bool:
     """On/off knob: "0"/"off"/"false"/"no" (any case) is False,
     "1"/"on"/"true"/"yes" is True; anything else warns and gives the

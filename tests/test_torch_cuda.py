@@ -20,6 +20,7 @@ from gamesmanmpi_tpu_torch.ops import window_gather as port
 from gamesmanmpi_tpu_torch.ops.elementwise import double_u32, double_u32_ref
 from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
 from gamesmanmpi_tpu_torch.solve.engine import Solver
+from gamesmanmpi_tpu_torch.utils.checkpoint import LevelCheckpointer
 
 pytestmark = pytest.mark.cuda
 
@@ -169,3 +170,39 @@ def test_classic_solve_on_card_matches_cpu(spec, provenance):
         for field in ("states", "values", "remoteness"):
             np.testing.assert_array_equal(getattr(card.levels[k], field),
                                           getattr(t, field))
+
+
+def _npz_members(directory):
+    """{file: {member: array}} of every sealed npz in a checkpoint dir."""
+    out = {}
+    for p in sorted(directory.glob("*.npz")):
+        with np.load(p) as z:
+            out[p.name] = {k: z[k] for k in z.files}
+    return out
+
+
+@pytest.mark.parametrize("engine", ["classic", "dense"])
+def test_checkpointed_solve_on_card_seals_what_the_cpu_seals(engine,
+                                                             tmp_path):
+    """The same game checkpointed on the card and on the CPU: the same
+    files, members, dtypes and arrays; a rerun on the card's directory
+    resumes (the dense one through the gather on no level)."""
+    _need_card()
+    g = get_game("connect4:w=3,h=4,connect=3")
+    solver = Solver if engine == "classic" else DenseSolver
+    for where in ("cuda", "cpu"):
+        solver(g, device=where,
+               checkpointer=LevelCheckpointer(tmp_path / where)).solve()
+    card, cpu = _npz_members(tmp_path / "cuda"), _npz_members(tmp_path / "cpu")
+    assert sorted(card) == sorted(cpu) and card
+    for name, members in cpu.items():
+        assert sorted(card[name]) == sorted(members), name
+        for k, a in members.items():
+            assert card[name][k].dtype == a.dtype, (name, k)
+            np.testing.assert_array_equal(card[name][k], a, err_msg=name)
+    before = kernels.LAUNCHES["monotone_window_gather"]
+    again = solver(g, checkpointer=LevelCheckpointer(tmp_path / "cuda")).solve()
+    assert (again.value, again.remoteness) == (3, 12)
+    if engine == "dense":
+        assert again.stats["levels_resumed"] == g.width * g.height + 1
+        assert kernels.LAUNCHES["monotone_window_gather"] == before

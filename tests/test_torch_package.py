@@ -62,6 +62,19 @@ def test_import_and_cpu_solve_leave_jax_out():
         " '--device', 'cpu', '--engine', 'dense']) == 0\n"
         "assert main(['solve', 'nim:heaps=3-4-5', '--device', 'cpu']) == 0\n"
         "import gamesmanmpi_tpu_torch.bench.microbench2\n"
+        "import gamesmanmpi_tpu_torch.compress, gamesmanmpi_tpu_torch.store\n"
+        "import gamesmanmpi_tpu_torch.resilience.faults\n"
+        "import gamesmanmpi_tpu_torch.resilience.preempt\n"
+        "import gamesmanmpi_tpu_torch.core.hashing\n"
+        "import gamesmanmpi_tpu_torch.core.probe\n"
+        "import gamesmanmpi_tpu_torch.utils.checkpoint\n"
+        "import tempfile\n"
+        "d = tempfile.mkdtemp()\n"
+        "assert main(['solve', 'tictactoe', '--device', 'cpu',"
+        " '--checkpoint-dir', d, '--no-tables', '--query', '0x1']) == 0\n"
+        "assert main(['solve', 'connect4:w=3,h=3,connect=3', '--device',"
+        " 'cpu', '--engine', 'dense', '--checkpoint-dir', d + '/dense',"
+        " '--no-tables', '--query', '0x111']) == 0\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'gamesmanmpi_tpu'))\n"
@@ -73,6 +86,8 @@ def test_import_and_cpu_solve_leave_jax_out():
     assert proc.returncode == 0, proc.stderr
     assert "positions: 694" in proc.stdout
     assert "positions: 120" in proc.stdout  # the classic engine's nim
+    assert "query 0x1: value=TIE remoteness=8" in proc.stdout
+    assert "query 0x111: value=TIE remoteness=9" in proc.stdout
     assert proc.stdout.strip().endswith("clean")
 
 
