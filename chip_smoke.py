@@ -49,9 +49,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              sampled positions.
 10. checkpoint classic 5x5 — `solve connect4:w=5,h=5 --checkpoint-dir D`
              (auto routes a checkpointed solve to the classic engine):
-             in-process, uninterrupted, with the default DEFLATE and with
-             plain files (GAMESMAN_CKPT_COMPRESS=0, what DEFLATE costs of
-             the seal time); then in a child process killed by
+             in-process, uninterrupted; then in a child process killed by
              GAMESMAN_FAULTS=engine.backward:kill:13 (exit 77), rerun on D
              (69,763,700 / TIE / 25; every level sealed before the kill
              keeps its mtime and crc, so it was loaded, not recomputed),
@@ -526,21 +524,6 @@ def manifest(d):
     return json.loads((pathlib.Path(d) / "manifest.json").read_text())
 
 
-@contextlib.contextmanager
-def plain_npz():
-    """GAMESMAN_CKPT_COMPRESS=0 for the block: every checkpoint file a
-    plain npz, so a run shows what DEFLATE costs of the seal time."""
-    old = os.environ.get("GAMESMAN_CKPT_COMPRESS")
-    os.environ["GAMESMAN_CKPT_COMPRESS"] = "0"
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["GAMESMAN_CKPT_COMPRESS"]
-        else:
-            os.environ["GAMESMAN_CKPT_COMPRESS"] = old
-
-
 def uninterrupted(argv, d, answer):
     """An uninterrupted checkpointed CLI solve in-process, then its
     directory's bytes on disk (the directory is removed): -> (stats,
@@ -576,15 +559,11 @@ def checkpoint_classic_phase(result, tmp, spec=C55,
     from gamesmanmpi_tpu_torch.store import file_crc32, read_npz_members
 
     t0 = time.perf_counter()
-    # Uninterrupted, in-process: what sealing costs the solve, with the
-    # default DEFLATE below 64 MB and with plain files.
+    # Uninterrupted, in-process: what sealing costs the solve.
     s0, full_disk = uninterrupted(["solve", spec, *extra],
                                   tmp / "classic_full", answer)
     if s0["engine"] != "classic":
         raise AssertionError(f"checkpointed {spec} ran {s0['engine']}")
-    with plain_npz():
-        s_plain, plain_disk = uninterrupted(["solve", spec, *extra],
-                                            tmp / "classic_plain", answer)
 
     d = tmp / "classic"
     argv = ["solve", spec, "--checkpoint-dir", str(d), *extra]
@@ -647,7 +626,6 @@ def checkpoint_classic_phase(result, tmp, spec=C55,
          no_checkpoint=dict(secs_forward=result.stats["secs_forward"],
                             secs_backward=result.stats["secs_backward"]),
          uninterrupted=seal_fields(s0, full_disk),
-         uninterrupted_plain_npz=seal_fields(s_plain, plain_disk),
          killed=dict(exit=77, levels_sealed=len(sealed), secs=secs_killed),
          resumed=dict(secs=secs_resumed, secs_forward=s1["secs_forward"],
                       secs_backward=s1["secs_backward"],
@@ -679,8 +657,7 @@ def checkpoint_dense_phase(dense_result, tmp, spec=C55,
     t0 = time.perf_counter()
     nlev = len(dense_result.cells)
     on_card = "cpu" not in extra  # a CPU rehearsal takes the plain version
-    # Uninterrupted, in-process, launches counted: what sealing costs,
-    # with the default DEFLATE and with plain files.
+    # Uninterrupted, in-process, launches counted: what sealing costs.
     kernels.reset_launches()
     s0, full_disk = uninterrupted(["solve", spec, "--engine", "dense",
                                    *extra], tmp / "dense_full", answer)
@@ -688,14 +665,11 @@ def checkpoint_dense_phase(dense_result, tmp, spec=C55,
     if (full_launches > 0) != on_card:
         raise AssertionError(f"checkpointed dense {spec}: {full_launches} "
                              "gather launches")
-    with plain_npz():
-        s_plain, plain_disk = uninterrupted(["solve", spec, "--engine",
-                                             "dense", *extra],
-                                            tmp / "dense_plain", answer)
 
     d = tmp / "dense"
     argv = ["solve", spec, "--engine", "dense", "--checkpoint-dir", str(d),
             *extra]
+    t_kill = time.perf_counter()
     proc = child(argv)
     try:
         deadline = time.monotonic() + 600
@@ -716,7 +690,7 @@ def checkpoint_dense_phase(dense_result, tmp, spec=C55,
         raise AssertionError(f"dense child was not killed mid-solve: exit "
                              f"{proc.returncode}, listed {listed}\n"
                              f"{err[-4000:]}")
-    secs_killed = time.perf_counter() - t0
+    secs_killed = time.perf_counter() - t_kill
     sealed = manifest(d)["dense_levels"]
     if len(sealed) >= nlev:
         raise AssertionError("the dense child sealed every level first")
@@ -756,7 +730,6 @@ def checkpoint_dense_phase(dense_result, tmp, spec=C55,
          uninterrupted=dict(seal_fields(s0, full_disk),
                             gather_launches=full_launches,
                             gather_nmiss=s0["gather_nmiss"]),
-         uninterrupted_plain_npz=seal_fields(s_plain, plain_disk),
          no_checkpoint=dict(
              secs_backward=dense_result.stats["secs_backward"],
              encodable_positions=dense_result.stats["encodable_positions"]),

@@ -2,7 +2,7 @@
 gamesmanmpi_tpu/resilience/faults.py).
 
 Named fault points sit on the solve's host-side level paths (engine level
-steps, checkpoint seals and loads, the store's write-behind) and are armed
+steps, checkpoint seals and loads) and are armed
 from one environment variable, so every failure the checkpoint claims to
 survive can be injected on demand: in-process by tests, or into a
 subprocess for kill + resume + identical-tables chaos.
@@ -66,8 +66,6 @@ PORTED_POINTS = {
     "ckpt.save_frontier": "checkpoint: after a frontier level is sealed",
     "ckpt.save_level": "checkpoint: after a solved level is sealed",
     "ckpt.load_level": "checkpoint: at the top of a resume level load",
-    "store.writebehind": "block store: after one payload write lands, "
-                         "before any seal can run",
 }
 
 #: Every point of the reference (gamesmanmpi_tpu/resilience/faults.py
@@ -78,7 +76,7 @@ KNOWN_POINTS = dict(PORTED_POINTS, **{p: "not yet ported" for p in (
     "coord.barrier", "coord.handshake", "db.probe", "serve.flush",
     "serve.block_decode", "serve.worker_spawn", "serve.heartbeat",
     "serve.reload", "registry.fetch", "registry.publish",
-    "registry.install", "jobs.claim",
+    "registry.install", "jobs.claim", "store.writebehind",
 )})
 
 KINDS = ("transient", "fatal", "delay", "kill", "torn", "enospc", "oom")

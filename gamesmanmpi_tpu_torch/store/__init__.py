@@ -1,15 +1,14 @@
 """The block store (port of gamesmanmpi_tpu/store/).
 
 Sealed crc-verified reads (:mod:`store.sealed`), a byte-budget host-RAM
-tier (:class:`TieredCache`) and the prefetch/write-behind engine
+tier (:class:`TieredCache`) and the prefetch engine
 (:class:`BlockStore`). The port's consumer is the checkpointer
-(utils/checkpoint.py). ``store/shm.py`` belongs to serving, not ported
-yet.
+(utils/checkpoint.py). The reference's write-behind comes with the DB
+writer, and ``store/shm.py`` with serving; neither is ported yet.
 """
 
 from gamesmanmpi_tpu_torch.store.blockstore import (  # noqa: F401
     BlockStore,
-    WriteTicket,
     default_store,
     file_key,
 )

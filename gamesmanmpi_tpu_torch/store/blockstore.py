@@ -10,18 +10,15 @@ exception on the pool is stored and re-raised at the consuming ``read``,
 on the caller's thread, where quarantine decisions live; loaders must
 therefore be pure (store/sealed.py).
 
-Write side. ``write(fn, path=...)`` enqueues a payload write on ONE
-ordered worker thread and returns a :class:`WriteTicket`; ``drain()``
-waits for the queue and re-raises the first failure. Seals stay on the
-caller's thread and drain first, so a payload always lands before its
-seal; a death mid-queue leaves an unsealed stray that resume ignores
-(the ``store.writebehind`` fault point fires after each payload lands).
+The reference's write side (``write``/``drain`` write-behind on one
+ordered worker thread) has no caller in this package yet: checkpoint
+seals write inline on the solve thread. It comes with the DB writer.
 
 Accounting: ``io_wait_secs`` sums every second the calling thread spent
-blocked on store I/O (synchronous loads, waits on in-flight prefetches,
-drains, inline writes). The reference's metric-registry series, query
-spans and flight-recorder events belong to the observability layer,
-not ported yet; the counters are read through :meth:`BlockStore.stats`.
+blocked on store I/O (synchronous loads and waits on in-flight
+prefetches). The reference's metric-registry series, query spans and
+flight-recorder events belong to the observability layer, not ported
+yet; the counters are read through :meth:`BlockStore.stats`.
 """
 
 from __future__ import annotations
@@ -31,48 +28,12 @@ import os
 import threading
 import time
 
-from gamesmanmpi_tpu_torch.resilience import faults
 from gamesmanmpi_tpu_torch.store.cache import TieredCache
-from gamesmanmpi_tpu_torch.utils.env import env_bool, env_int
+from gamesmanmpi_tpu_torch.utils.env import env_int
 
 #: Host-RAM tier default, in MB (GAMESMAN_STORE_CACHE_MB).
 _DEFAULT_CACHE_MB = 256
 _DEFAULT_PREFETCH_THREADS = 2
-
-
-class WriteTicket:
-    """One enqueued write-behind payload write.
-
-    ``result()`` blocks until the write lands and returns the write fn's
-    return value, re-raising the write's failure. Resolved synchronously
-    when write-behind is off."""
-
-    __slots__ = ("path", "consumed", "_event", "_value", "_error")
-
-    def __init__(self, path=None):
-        self.path = path
-        #: True once result() delivered the outcome to a caller: a failure
-        #: somebody already handled is not re-raised at a later drain().
-        self.consumed = False
-        self._event = threading.Event()
-        self._value = None
-        self._error = None
-
-    def _resolve(self, value=None, error=None) -> None:
-        self._value = value
-        self._error = error
-        self._event.set()
-
-    def done(self) -> bool:
-        return self._event.is_set()
-
-    def result(self, timeout=None):
-        if not self._event.wait(timeout):
-            raise TimeoutError(f"write-behind of {self.path} still queued")
-        self.consumed = True
-        if self._error is not None:
-            raise self._error
-        return self._value
 
 
 class _Inflight:
@@ -99,15 +60,13 @@ def file_key(path):
 
 
 class BlockStore:
-    """Tiered cache + prefetch pool + write-behind worker."""
+    """Tiered cache + prefetch pool."""
 
     def __init__(self, *, cache: TieredCache | None = None,
-                 prefetch_threads: int = _DEFAULT_PREFETCH_THREADS,
-                 writebehind: bool = True):
+                 prefetch_threads: int = _DEFAULT_PREFETCH_THREADS):
         self.cache = cache if cache is not None else TieredCache(
             _DEFAULT_CACHE_MB << 20)
         self.prefetch_threads = max(0, int(prefetch_threads))
-        self.writebehind = bool(writebehind)
         self._lock = threading.Lock()
         self._inflight: dict = {}  # guarded-by: _lock
         self._closed = False  # guarded-by: _lock
@@ -120,15 +79,6 @@ class BlockStore:
         self._pf_cond = threading.Condition(self._lock)
         self._pf_queue: collections.deque = collections.deque()
         self._pf_started = 0  # guarded-by: _lock
-        # Write-behind: ONE ordered daemon worker (FIFO order is the
-        # correctness argument).
-        self._wb_cond = threading.Condition(self._lock)
-        self._wb_queue: collections.deque = collections.deque()
-        self._wb_busy = False  # guarded-by: _lock
-        self._wb_failed = None  # guarded-by: _lock (first failed ticket)
-        self._wb_thread = None
-        self._wb_writes = 0  # guarded-by: _lock
-        self._wb_depth_peak = 0  # guarded-by: _lock
 
     # -------------------------------------------------------------- reads
 
@@ -245,98 +195,6 @@ class BlockStore:
             return 0
         return int(sum(getattr(v, "nbytes", 0) for v in vals))
 
-    # ------------------------------------------------------------- writes
-
-    def write(self, fn, path=None) -> WriteTicket:
-        """Enqueue one payload write (write-behind on) or run it inline
-        (off, or after close), returning its ticket. ``path`` names the
-        target file for diagnostics and the ``store.writebehind`` fault
-        point's torn-write target."""
-        ticket = WriteTicket(path)
-        if self.writebehind:
-            with self._wb_cond:
-                if not self._closed:
-                    self._wb_queue.append((ticket, fn))
-                    depth = len(self._wb_queue) + (1 if self._wb_busy else 0)
-                    self._wb_depth_peak = max(self._wb_depth_peak, depth)
-                    if self._wb_thread is None:
-                        self._wb_thread = threading.Thread(
-                            target=self._writebehind_loop,
-                            name="gamesman-store-writebehind", daemon=True,
-                        )
-                        self._wb_thread.start()
-                    self._wb_cond.notify()
-                    return ticket
-        self._run_write(ticket, fn)
-        return ticket
-
-    def _run_write(self, ticket: WriteTicket, fn) -> None:
-        """One write on the CALLING thread (write-behind off): it blocks
-        the caller, so it counts as io_wait. A failure raises directly and
-        is not recorded for drain(), which would surface it twice."""
-        t0 = time.perf_counter()
-        try:
-            value = fn()
-            # Inside the try: an armed transient/fatal here behaves like a
-            # write failure (the ticket resolves; kill/torn exit outright).
-            faults.fire("store.writebehind", path=ticket.path)
-        except BaseException as e:  # noqa: BLE001 - also surfaced via ticket
-            ticket._resolve(error=e)
-            self._note_wait(time.perf_counter() - t0)
-            with self._lock:
-                self._wb_writes += 1
-            raise
-        self._note_wait(time.perf_counter() - t0)
-        with self._lock:
-            self._wb_writes += 1
-        ticket._resolve(value)
-
-    def _writebehind_loop(self) -> None:
-        while True:
-            with self._wb_cond:
-                self._wb_busy = False
-                self._wb_cond.notify_all()  # wake drain()ers
-                while not self._wb_queue and not self._closed:
-                    self._wb_cond.wait()
-                if not self._wb_queue:
-                    return  # closed and drained
-                ticket, fn = self._wb_queue.popleft()
-                self._wb_busy = True
-            try:
-                value = fn()
-                # After the payload lands, before any seal can run (seals
-                # drain first): a kill here is the death between payload
-                # and seal. Inside the try, so an injected transient/fatal
-                # resolves the ticket instead of killing this thread.
-                faults.fire("store.writebehind", path=ticket.path)
-            except BaseException as e:  # noqa: BLE001 - surfaced at drain
-                with self._lock:
-                    self._wb_writes += 1
-                    if self._wb_failed is None:
-                        self._wb_failed = ticket
-                ticket._resolve(error=e)
-                continue
-            with self._lock:
-                self._wb_writes += 1
-            ticket._resolve(value)
-
-    def drain(self) -> None:
-        """Wait for the write-behind queue; re-raise the first queued
-        write's failure unless its ticket was already consumed by
-        result(). Cleared either way: one failure surfaces once. Every
-        seal calls this before it writes a manifest."""
-        t0 = time.perf_counter()
-        with self._wb_cond:
-            while self._wb_queue or self._wb_busy:
-                self._wb_cond.wait()
-            failed, self._wb_failed = self._wb_failed, None
-        waited = time.perf_counter() - t0
-        if waited > 1e-6:
-            self._note_wait(waited)
-        if failed is not None and not failed.consumed:
-            failed.consumed = True
-            raise failed._error
-
     # -------------------------------------------------------------- misc
 
     def _note_wait(self, secs: float) -> None:
@@ -356,21 +214,13 @@ class BlockStore:
                 "prefetch_hit_rate": (
                     self._prefetch_hits / reads if reads else 0.0
                 ),
-                "writebehind_writes": self._wb_writes,
-                "writebehind_queue_depth": (
-                    len(self._wb_queue) + (1 if self._wb_busy else 0)
-                ),
-                "writebehind_queue_depth_peak": self._wb_depth_peak,
             }
 
     def close(self) -> None:
-        """Drain writes, stop accepting background work, release the
-        cache. Late ``write`` calls run inline and late ``hint`` calls
-        no-op, so a holder of a stale store stays correct."""
-        self.drain()
-        with self._wb_cond:
+        """Stop accepting background work and release the cache. Late
+        ``hint`` calls no-op, so a holder of a stale store stays correct."""
+        with self._pf_cond:
             self._closed = True
-            self._wb_cond.notify_all()
             self._pf_cond.notify_all()
         self.cache.clear()
 
@@ -382,15 +232,13 @@ _DEFAULT: tuple | None = None  # guarded-by: _DEFAULT_LOCK
 
 
 def default_store() -> BlockStore:
-    """The shared store (one byte budget, one prefetch pool, one
-    write-behind queue per process), configured by
-    GAMESMAN_STORE_CACHE_MB, GAMESMAN_STORE_PREFETCH_THREADS and
-    GAMESMAN_STORE_WRITEBEHIND."""
+    """The shared store (one byte budget and one prefetch pool per
+    process), configured by GAMESMAN_STORE_CACHE_MB and
+    GAMESMAN_STORE_PREFETCH_THREADS."""
     global _DEFAULT
     knobs = (
         env_int("GAMESMAN_STORE_CACHE_MB", _DEFAULT_CACHE_MB),
         env_int("GAMESMAN_STORE_PREFETCH_THREADS", _DEFAULT_PREFETCH_THREADS),
-        env_bool("GAMESMAN_STORE_WRITEBEHIND", True),
     )
     with _DEFAULT_LOCK:
         if _DEFAULT is not None and _DEFAULT[0] == knobs:
@@ -399,7 +247,6 @@ def default_store() -> BlockStore:
         store = BlockStore(
             cache=TieredCache(max(1, knobs[0]) << 20),
             prefetch_threads=knobs[1],
-            writebehind=knobs[2],
         )
         _DEFAULT = (knobs, store)
     if old is not None:

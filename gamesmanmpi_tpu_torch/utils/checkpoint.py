@@ -196,10 +196,6 @@ class LevelCheckpointer:
             "io_wait_secs": self.store.stats()["io_wait_secs"] - self._io0,
         }
 
-    def flush_writes(self) -> None:
-        """Barrier on pending write-behind payload writes."""
-        self.store.drain()
-
     # ------------------------------------------------------ dtypes on disk
 
     def _disk_states(self, states) -> np.ndarray:
@@ -266,7 +262,6 @@ class LevelCheckpointer:
         """Rename a sealed level's file to ``.corrupt`` and unseal it; the
         level recomputes (its frontier is still known) and re-seals over
         the quarantine. Idempotent."""
-        self.flush_writes()  # never quarantine around an in-flight write
         manifest = self.load_manifest()
         p = self._level_path(level)
         if p.exists():

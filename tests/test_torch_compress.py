@@ -2,8 +2,8 @@
 
 Every codec, block frame and block-framed checkpoint npz of the port is
 byte for byte the reference's on the same input, and each package decodes
-the other's. The block store's read, prefetch and write-behind contracts
-are the reference's (tests/test_store.py); the block cache's LRU is the
+the other's. The block store's read and prefetch contracts are the
+reference's (tests/test_store.py); the block cache's LRU is the
 reference's (tests/test_compress.py). Seeded numpy inputs; exact.
 """
 
@@ -246,8 +246,7 @@ def test_loadz_reads_block_framed_reference_file(tmp_path, monkeypatch):
 
 
 def test_hint_becomes_cache_hit_and_loader_runs_once():
-    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=2,
-                       writebehind=False)
+    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=2)
     calls = []
 
     def loader():
@@ -267,8 +266,7 @@ def test_hint_becomes_cache_hit_and_loader_runs_once():
 
 
 def test_hinted_but_evicted_degrades_to_sync_read():
-    store = BlockStore(cache=TieredCache(256), prefetch_threads=1,
-                       writebehind=False)
+    store = BlockStore(cache=TieredCache(256), prefetch_threads=1)
     store.hint(("victim",), lambda: np.full(64, 7, np.int64))  # 512 B > 256
     deadline = time.monotonic() + 5
     while store.stats()["prefetch_issued"] == 0 \
@@ -281,8 +279,7 @@ def test_hinted_but_evicted_degrades_to_sync_read():
 
 
 def test_background_loader_error_reraises_on_consuming_thread():
-    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=1,
-                       writebehind=False)
+    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=1)
 
     def torn():
         raise ValueError("crc32 mismatch — torn block")
@@ -295,8 +292,7 @@ def test_background_loader_error_reraises_on_consuming_thread():
 
 
 def test_concurrent_reads_count_every_read():
-    store = BlockStore(cache=TieredCache(1 << 12), prefetch_threads=2,
-                       writebehind=False)
+    store = BlockStore(cache=TieredCache(1 << 12), prefetch_threads=2)
     errors = []
 
     def worker(seed):
@@ -335,81 +331,25 @@ def test_file_key_invalidates_on_rewrite_and_missing(tmp_path):
     assert file_key(p) is None
 
 
-def test_writebehind_executes_in_order_and_drain_barriers(tmp_path):
-    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=0,
-                       writebehind=True)
-    order = []
-
-    def job(i):
-        def run():
-            (tmp_path / f"f{i}").write_bytes(b"x" * 10)
-            order.append(i)
-            return (10, 10)
-        return run
-
-    tickets = [store.write(job(i), path=str(tmp_path / f"f{i}"))
-               for i in range(8)]
-    store.drain()
-    assert order == list(range(8))  # FIFO: payload-before-seal rests on it
-    assert all(t.done() and t.result() == (10, 10) for t in tickets)
-    assert store.stats()["writebehind_queue_depth"] == 0
-    assert store.stats()["writebehind_queue_depth_peak"] >= 1
-    assert store.stats()["writebehind_writes"] == 8
-    store.close()
-    late = store.write(lambda: (1, 1))  # after close: runs inline
-    assert late.done() and late.result() == (1, 1)
-
-
-def test_writebehind_failure_surfaces_at_drain_once():
-    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=0,
-                       writebehind=True)
-
-    def boom():
-        raise OSError("disk full")
-
-    t = store.write(boom, path="doomed")
-    with pytest.raises(OSError, match="disk full"):
-        store.drain()
-    with pytest.raises(OSError, match="disk full"):
-        t.result()
-    store.drain()  # the error does not poison later seals
-    store.close()
-
-
-@pytest.mark.parametrize("writebehind", [True, False])
-def test_writebehind_injected_transient_resolves_ticket(writebehind):
-    """An armed transient at store.writebehind behaves like a write
-    failure: the ticket resolves with it, and the worker lives on."""
-    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=0,
-                       writebehind=writebehind)
-    faults.configure("store.writebehind:transient")
-    try:
-        if writebehind:
-            t = store.write(lambda: (1, 1), path="x")
-            with pytest.raises(faults.TransientFault):
-                store.drain()
-        else:
-            with pytest.raises(faults.TransientFault):
-                store.write(lambda: (1, 1), path="x")
-            t = None
-        if t is not None:
-            with pytest.raises(faults.TransientFault):
-                t.result()
-        t2 = store.write(lambda: (2, 2), path="y")
-        store.drain()
-        assert t2.result() == (2, 2)
-    finally:
-        faults.clear()
-        store.close()
-
-
-def test_sync_mode_counts_inline_write_as_io_wait():
-    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=0,
-                       writebehind=False)
-    t = store.write(lambda: (time.sleep(0.02), (1, 1))[1], path=None)
-    assert t.done() and t.result() == (1, 1)
+def test_sync_read_counts_as_io_wait():
+    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=0)
+    val, hit = store.read_ex(("slow",),
+                             lambda: (time.sleep(0.02), np.arange(4))[1])
+    assert not hit and (val == np.arange(4)).all()
     assert store.stats()["io_wait_secs"] >= 0.02
     store.close()
+
+
+def test_hint_is_noop_without_pool_and_after_close():
+    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=0)
+    store.hint(("a",), lambda: np.arange(4))
+    assert store.stats()["prefetch_issued"] == 0
+    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=1)
+    store.close()
+    store.hint(("a",), lambda: np.arange(4))
+    assert store.stats()["prefetch_issued"] == 0
+    val, hit = store.read_ex(("a",), lambda: np.arange(4))
+    assert not hit and (val == np.arange(4)).all()
 
 
 def test_default_store_rebuilds_on_env_change(monkeypatch):
@@ -421,6 +361,5 @@ def test_default_store_rebuilds_on_env_change(monkeypatch):
     s2 = default_store()
     assert s2 is not s1 and s2.cache.budget_bytes == 9 << 20
     monkeypatch.setenv("GAMESMAN_STORE_PREFETCH_THREADS", "0")
-    monkeypatch.setenv("GAMESMAN_STORE_WRITEBEHIND", "0")
     s3 = default_store()
-    assert (s3.prefetch_threads, s3.writebehind) == (0, False)
+    assert s3 is not s2 and s3.prefetch_threads == 0

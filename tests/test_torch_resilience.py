@@ -111,8 +111,7 @@ def test_known_points_are_the_references():
     assert sorted(faults.KNOWN_POINTS) == sorted(ref_faults.KNOWN_POINTS)
     assert set(faults.PORTED_POINTS) == {
         "engine.forward", "engine.dedup", "engine.backward",
-        "ckpt.save_level", "ckpt.load_level", "ckpt.save_frontier",
-        "store.writebehind"}
+        "ckpt.save_level", "ckpt.load_level", "ckpt.save_frontier"}
     assert faults.KILL_EXIT_CODE == ref_faults.KILL_EXIT_CODE == 77
     assert faults.TORN_EXIT_CODE == ref_faults.TORN_EXIT_CODE == 86
     assert preempt.GRACE_EXIT_CODE == 75
