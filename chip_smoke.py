@@ -63,6 +63,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              (`levels_resumed` > 0), launches the window gather on the
              levels it recomputes (`nmiss` counted there), and every
              dense_NNNN.npz holds phase 6's cells byte for byte.
+12. db 5x5 — the solved-position DB, in CLI children: `export-db` from
+             a fresh classic solve streamed into the writer (69,763,700
+             positions, 26 levels), from phase 10's uninterrupted
+             checkpoint (every file the same sha256, `db_equal` clean),
+             and as format v2 with an 8-ply opening book (`check_db`,
+             `db_equal` against v1 and `verify_book` clean); each
+             export's seconds and peak RSS. Then 2^20 positions (2^19
+             sampled from phase 9's tables, 2^19 random 30-bit states)
+             through `DbReader` on the card over v1 and v2: `lookup`
+             equal to the classic tables (found iff reachable),
+             `lookup_best` equal to a CPU reader's on every lane, each
+             best move a legal child realizing the value; and a `query`
+             child printing the in-process reader's lines.
 
 Then the kernels line, the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or of the JAX
@@ -524,15 +537,16 @@ def manifest(d):
     return json.loads((pathlib.Path(d) / "manifest.json").read_text())
 
 
-def uninterrupted(argv, d, answer):
+def uninterrupted(argv, d, answer, keep=False):
     """An uninterrupted checkpointed CLI solve in-process, then its
-    directory's bytes on disk (the directory is removed): -> (stats,
-    disk bytes)."""
+    directory's bytes on disk (the directory is removed unless `keep`):
+    -> (stats, disk bytes)."""
     result, report = cli_solve([*argv, "--checkpoint-dir", str(d)])
     if report_answer(report) != answer:
         raise AssertionError(f"checkpointed {argv}: {report}")
     disk = disk_bytes(d)
-    shutil.rmtree(d)
+    if not keep:
+        shutil.rmtree(d)
     return result.stats, disk
 
 
@@ -560,8 +574,9 @@ def checkpoint_classic_phase(result, tmp, spec=C55,
 
     t0 = time.perf_counter()
     # Uninterrupted, in-process: what sealing costs the solve.
+    # Kept: phase 12 converts it into a database.
     s0, full_disk = uninterrupted(["solve", spec, *extra],
-                                  tmp / "classic_full", answer)
+                                  tmp / "classic_full", answer, keep=True)
     if s0["engine"] != "classic":
         raise AssertionError(f"checkpointed {spec} ran {s0['engine']}")
 
@@ -737,6 +752,291 @@ def checkpoint_dense_phase(dense_result, tmp, spec=C55,
          secs=time.perf_counter() - t0)
 
 
+def rss_bytes():
+    """This process's resident set now (/proc/self/statm), or None where
+    the kernel does not report it."""
+    try:
+        pages = int(pathlib.Path("/proc/self/statm").read_text().split()[1])
+    except (OSError, IndexError, ValueError):
+        return None
+    return pages * os.sysconf("SC_PAGE_SIZE")
+
+
+class PeakRss:
+    """The peak of rss_bytes() over a `with` block, sampled every 20 ms
+    on a thread (ru_maxrss would carry the forking parent's peak, and
+    VmHWM is not reported everywhere). `peak` is None when the resident
+    set cannot be read."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            now = rss_bytes()
+            if now is not None:
+                self.peak = max(self.peak or 0, now)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        now = rss_bytes()
+        if now is not None:
+            self.peak = max(self.peak or 0, now)
+        return False
+
+
+#: The CLI in a child process for a command that solves nothing
+#: (export-db, query): its output, then as the last line its exit code
+#: and its peak resident set.
+DB_CHILD = """
+import json, sys
+import chip_smoke
+from gamesmanmpi_tpu_torch.cli import main
+with chip_smoke.PeakRss() as rss:
+    rc = main(sys.argv[1:])
+print(json.dumps({"rc": rc, "peak_rss_bytes": rss.peak}), flush=True)
+sys.exit(rc)
+"""
+
+
+def run_db_child(argv):
+    """Run DB_CHILD to its end: -> (output lines, peak RSS bytes,
+    seconds); raises unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", DB_CHILD, *argv], cwd=REPO,
+                          capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0:
+        raise AssertionError(f"child {argv} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return lines[:-1], json.loads(lines[-1])["peak_rss_bytes"], secs
+
+
+def export_child(argv, answer, nlevels):
+    """An export-db child: its positions and levels lines checked."""
+    lines, rss, secs = run_db_child(["export-db", *argv])
+    got = {ln.split(": ")[0]: ln.split(": ", 1)[1] for ln in lines
+           if ": " in ln}
+    if int(got["positions"]) != answer[0] or int(got["levels"]) != nlevels:
+        raise AssertionError(f"export-db {argv}: {lines}")
+    return lines, rss, secs
+
+
+def digests(d):
+    import hashlib
+
+    out = {}
+    for p in sorted(pathlib.Path(d).iterdir()):
+        h = hashlib.sha256()
+        with open(p, "rb") as fh:
+            for chunk in iter(lambda: fh.read(1 << 24), b""):
+                h.update(chunk)
+        out[p.name] = h.hexdigest()
+    return out
+
+
+def sample_states(result, n, seed):
+    """n states drawn with replacement from every level's table (a level
+    weighted by its size) -> (int64 states, values, remoteness)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    levels = sorted(result.levels)
+    sizes = np.array([result.levels[k].states.shape[0] for k in levels])
+    ends = np.cumsum(sizes)
+    u = np.sort(rng.integers(0, int(ends[-1]), size=n))
+    which = np.searchsorted(ends, u, side="right")
+    parts = ([], [], [])
+    for i, k in enumerate(levels):
+        idx = u[which == i] - (ends[i] - sizes[i])
+        t = result.levels[k]
+        for part, arr in zip(parts, (t.states, t.values, t.remoteness)):
+            part.append(arr[idx])
+    return tuple(np.concatenate(p) for p in parts)
+
+
+def table_truth(result, states, device):
+    """The solve's answer for arbitrary states: found iff the state is in
+    the table of its level (Connect-4 sym=0: canonical = raw), with its
+    value and remoteness -> (found, values, remoteness)."""
+    import numpy as np
+
+    g = result.game
+    lv = g.level_of(torch.from_numpy(states).to(device)).cpu().numpy()
+    found = np.zeros(states.shape, dtype=bool)
+    values = np.zeros(states.shape, dtype=np.uint8)
+    rem = np.zeros(states.shape, dtype=np.int32)
+    for k, t in result.levels.items():
+        sel = np.nonzero(lv == k)[0]
+        i = np.minimum(np.searchsorted(t.states, states[sel]),
+                       t.states.shape[0] - 1)
+        hit = t.states[i] == states[sel]
+        found[sel[hit]] = True
+        values[sel[hit]] = t.values[i[hit]]
+        rem[sel[hit]] = t.remoteness[i[hit]]
+    return found, values, rem
+
+
+def best_moves_check(reader, q, values, rem, found, best):
+    """Each best move is a legal child of the raw query whose stored value
+    is the combine's pick (WIN -> a LOSE child, LOSE -> WIN, TIE -> TIE)
+    at one less remoteness; terminal positions and misses get the
+    reference's sentinel. -> the number of best moves checked."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch.core.values import UNDECIDED
+
+    g = reader.game
+    has = best != g.sentinel
+    if has[~found].any():
+        raise AssertionError("a best move for a position not found")
+    rows = np.nonzero(found)[0]
+    states = torch.from_numpy(q[rows].astype(np.int64)).to(reader.device)
+    kids, mask = g.expand(states)
+    prim = g.primitive(states)
+    mask = (mask & (prim == UNDECIDED).unsqueeze(-1)).cpu().numpy()
+    kids = np.where(mask, kids.cpu().numpy(), -1)
+    if (has[rows] != mask.any(axis=1)).any():
+        raise AssertionError("best move present iff the position has moves "
+                             "does not hold")
+    r = rows[has[rows]]
+    legal = (kids[has[rows]] == best[r, None].astype(np.int64)).any(axis=1)
+    bv, br, bf = reader.lookup(best[r])
+    want = np.array([0, 2, 1, 3], dtype=np.uint8)[values[r]]
+    if not (legal.all() and bf.all() and (bv == want).all()
+            and (br == rem[r] - 1).all()):
+        raise AssertionError("a best move is not a legal child realizing "
+                             "the position's value")
+    return int(r.size)
+
+
+def db_phase(result, tmp, spec=C55, answer=(69763700, "TIE", 25),
+             extra=(), book_plies=8):
+    """Phase 12: the solved-position DB on the card, at the main path's
+    width. `result` is phase 9's in-process classic solve of `spec`, and
+    tmp / "classic_full" phase 10's uninterrupted checkpoint of it;
+    `extra` CLI arguments (`--device cpu`) rehearse the phase on the CPU
+    at a small board."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch.core.bitops import to_reference
+    from gamesmanmpi_tpu_torch.db import DbReader, check_db
+    from gamesmanmpi_tpu_torch.db.book import verify_book
+    from gamesmanmpi_tpu_torch.db.check import db_equal
+
+    t0 = time.perf_counter()
+    on_card = "cpu" not in extra
+    device = "cuda" if on_card else "cpu"
+    nlev = len(result.levels)
+    parent_rss = rss_bytes()  # holding phase 9's tables
+    a, b, c = tmp / "db_a", tmp / "db_b", tmp / "db_c"
+    ckpt = tmp / "classic_full"
+    # 1. A fresh classic solve streamed into the writer (level_sink).
+    _, rss_a, secs_a = export_child([spec, "--out", str(a), *extra],
+                                    answer, nlev)
+    # 2. The same DB converted from phase 10's checkpoint: the same bytes.
+    _, rss_b, secs_b = export_child([spec, "--from-checkpoint", str(ckpt),
+                                     "--out", str(b), *extra], answer, nlev)
+    da = digests(a)
+    if da != digests(b) or db_equal(a, b) != []:
+        raise AssertionError("streamed and from-checkpoint exports differ")
+    # 3. Format v2 with an opening book, from the checkpoint.
+    lines_c, rss_c, secs_c = export_child(
+        [spec, "--from-checkpoint", str(ckpt), "--compress", "--book-plies",
+         str(book_plies), "--out", str(c), *extra], answer, nlev)
+    t = time.perf_counter()
+    problems = check_db(c) + db_equal(a, c)
+    secs_check = time.perf_counter() - t
+    t = time.perf_counter()
+    problems += verify_book(c, device=device)
+    secs_verify_book = time.perf_counter() - t
+    if problems:
+        raise AssertionError(f"v2 DB: {problems[:3]}")
+    mc = manifest(c)
+    # 4. 2^20 lookups on the card: 2^19 sampled reachable states, 2^19
+    # random states of the 30-bit space (mostly unreachable).
+    g = result.game
+    half = 1 << 19
+    s_states, s_values, s_rem = sample_states(result, half, seed=12)
+    rand = np.random.default_rng(13).integers(0, 1 << g.state_bits,
+                                              size=half)
+    r_found, r_values, r_rem = table_truth(result, rand, device)
+    q = to_reference(np.concatenate([s_states, rand]), g)
+    want_found = np.concatenate([np.ones(half, dtype=bool), r_found])
+    want_values = np.concatenate([s_values, r_values])
+    want_rem = np.concatenate([s_rem, r_rem])
+    secs = {}
+    answers = {}
+    for label, d, dev in (("v1_" + device, a, device), ("v2_" + device, c,
+                                                         device),
+                          ("v1_cpu_reader", a, "cpu")):
+        with DbReader(d, device=dev) as reader:
+            reader.lookup(q[:1024])  # first touch: mmaps, blocks, kernels
+            t = time.perf_counter()
+            values, rem, found = reader.lookup(q)
+            secs[f"lookup_{label}"] = time.perf_counter() - t
+            t = time.perf_counter()
+            got = reader.lookup_best(q)
+            secs[f"lookup_best_{label}"] = time.perf_counter() - t
+            if not (np.array_equal(found, want_found)
+                    and np.array_equal(values[found], want_values[found])
+                    and np.array_equal(rem[found], want_rem[found])
+                    and (values[~found] == 0).all()):
+                raise AssertionError(f"{label} lookup differs from the "
+                                     "classic tables")
+            answers[label] = got
+            if label == "v1_" + device:
+                checked = best_moves_check(reader, q, *got)
+    for label, got in answers.items():
+        for x, y in zip(got, answers["v1_cpu_reader"]):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"{label} lookup_best differs from "
+                                     "the CPU reader")
+    # 5. `query` in a child: the in-process reader's lines.
+    picks = [hex(int(q[i])) for i in (half // 3, 2 * half // 3, half - 1)]
+    qargs = [hex(int(g.initial_state())), *picks]
+    lines, rss_q, secs_query = run_db_child(["query", str(a), *qargs,
+                                             *extra])
+    from gamesmanmpi_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["query", str(a), *qargs, *extra])
+    if rc != 0 or lines != buf.getvalue().splitlines() \
+            or len(lines) != len(qargs):
+        raise AssertionError(f"query child {lines} != in-process "
+                             f"{buf.getvalue().splitlines()}")
+    comp = mc["compression"]
+    emit(f"db {spec}", positions=answer[0], levels=nlev,
+         export_streamed=dict(secs=secs_a, peak_rss_bytes=rss_a),
+         export_from_checkpoint=dict(secs=secs_b, peak_rss_bytes=rss_b,
+                                     files_identical=len(da)),
+         export_v2_book=dict(secs=secs_c, peak_rss_bytes=rss_c,
+                             stored_bytes=comp["stored_bytes"],
+                             raw_bytes=comp["raw_bytes"],
+                             book_entries=mc["book"]["count"],
+                             book_plies=mc["book"]["plies"],
+                             secs_check_db_and_db_equal=secs_check,
+                             secs_verify_book=secs_verify_book),
+         disk_bytes_v1=disk_bytes(a), disk_bytes_v2=disk_bytes(c),
+         parent_rss_bytes=parent_rss,
+         batch=dict(positions=int(q.shape[0]),
+                    found=int(want_found.sum()), best_moves_checked=checked,
+                    **secs),
+         query=dict(lines=lines, secs=secs_query, peak_rss_bytes=rss_q),
+         secs=time.perf_counter() - t0)
+    for d in (a, b, c):
+        shutil.rmtree(d)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -772,6 +1072,7 @@ def main() -> int:
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
     try:
         checkpoint_classic_phase(classic_result, tmp)
+        db_phase(classic_result, tmp)
         del classic_result
         checkpoint_dense_phase(dense_result, tmp)
     finally:

@@ -1,16 +1,23 @@
-"""Command line of the torch port: the `solve` subcommand.
+"""Command line of the torch port: `solve`, `export-db` and `query`.
 
     gamesman-solve-torch solve GAME [--engine auto|dense|classic]
                          [--device cuda|cpu] [--no-tables] [--paranoid]
                          [--table-out PATH] [--checkpoint-dir DIR]
                          [--query POS]...
+    gamesman-solve-torch solve path/to/module.py [--device cuda|cpu] ...
+    gamesman-solve-torch export-db GAME --out DIR [--from-checkpoint DIR]
+                         [--overwrite] [--compress] [--book-plies N]
+                         [--device cuda|cpu]
+    gamesman-solve-torch query DB POS... [--device cuda|cpu]
     python -m gamesmanmpi_tpu_torch.cli solve connect4:w=5,h=5
 
-It prints the reference CLI's rank-0 block (gamesmanmpi_tpu/cli.py
+`solve` prints the reference CLI's rank-0 block (gamesmanmpi_tpu/cli.py
 `_report`): game, devices, positions, value, remoteness, elapsed,
-throughput, the table file, and one line per --query. The solve runs on
-the card unless --device cpu is given; without a card it exits 2 with a
-message.
+throughput, the table file, and one line per --query. A path to a
+reference-style game module is solved the reference's compat way: by
+the host oracle, or, when the module declares `level_of`, on the
+classic engine through compat.TensorizedModule (`--engine dense` exits
+2 there).
 
 Engines, routed as the reference routes one device: `dense` takes a
 Connect-4 board with sym=0 and no --paranoid/--table-out; `classic` (the
@@ -26,19 +33,36 @@ boundary with "preempted: ..." on stderr and exit 75. With --no-tables,
 --query answers from the directory's files. GAMESMAN_FAULTS arms fault
 points (resilience/faults.py): an injected kill exits 77, a torn seal 86.
 
-It returns 0 once solved, 75 when preempted, and 2 on a usage error, an
-unknown or not-yet-ported game, an engine the game cannot take, a bad
+`export-db` writes a solved-position database (db/), the reference's
+format byte for byte: from a fresh classic solve streamed level by level
+into the writer, or converted from a classic --checkpoint-dir
+(--from-checkpoint). --compress (default GAMESMAN_DB_COMPRESS) writes
+format v2; --book-plies (default GAMESMAN_BOOK_PLIES) seals an opening
+book. `query` answers positions from a database, each with its best
+move, the reference's lines.
+
+Every command runs on the card unless --device cpu is given; without a
+card it exits 2 with a message. It returns 0 on success, 75 when
+preempted, and 2 on a usage error, an unknown or not-yet-ported game, an
+engine the game cannot take, an invalid game module or database, a bad
 GAMESMAN_FAULTS, or a missing CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import pathlib
 import sys
 import time
 from typing import Optional
 
 from gamesmanmpi_tpu_torch.core.values import value_name
+
+
+def _device_arg(p, what: str) -> None:
+    p.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help=f"where {what} runs (default: the card)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,15 +72,14 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
     s = sub.add_parser("solve", help="solve a game and print the root block")
-    s.add_argument("game", help="game spec, e.g. connect4:w=5,h=5")
+    s.add_argument("game", help="game spec, e.g. connect4:w=5,h=5, or a "
+                   "path to a reference-style game module")
     s.add_argument(
         "--engine", choices=("auto", "dense", "classic"), default="auto",
         help="'classic' = level-BFS engine (every game); 'dense' = "
         "class-partitioned perfect-indexing engine (Connect-4 family, "
         "sym=0); 'auto' picks dense when eligible on the card")
-    s.add_argument(
-        "--device", choices=("cuda", "cpu"), default="cuda",
-        help="where the solve runs (default: the card)")
+    _device_arg(s, "the solve")
     s.add_argument(
         "--no-tables", action="store_true",
         help="keep only the root on the host (queries then answer "
@@ -76,6 +99,34 @@ def build_parser() -> argparse.ArgumentParser:
         "--query", action="append", default=None, metavar="POS",
         help="after solving, print the value/remoteness of this packed "
         "position (decimal or 0x-hex; repeatable)")
+
+    e = sub.add_parser(
+        "export-db",
+        help="build an immutable DB from a fresh solve or a checkpoint dir")
+    e.add_argument("game", help="built-in game spec")
+    e.add_argument("--out", required=True, help="DB output directory")
+    e.add_argument(
+        "--from-checkpoint", default=None, metavar="DIR",
+        help="convert an existing classic --checkpoint-dir instead of "
+        "re-solving")
+    e.add_argument("--overwrite", action="store_true",
+                   help="replace an existing DB in --out")
+    e.add_argument(
+        "--compress", action="store_true", default=None,
+        help="write format v2: block-compressed levels, decoded per "
+        "probed block (default from GAMESMAN_DB_COMPRESS)")
+    e.add_argument(
+        "--book-plies", type=int, default=None, metavar="N",
+        help="also seal the opening book: every position within N plies "
+        "of the initial position, scored through the finished DB "
+        "(default from GAMESMAN_BOOK_PLIES; 0 = no book)")
+    _device_arg(e, "the solve and the book")
+
+    q = sub.add_parser("query", help="probe a DB offline (no server)")
+    q.add_argument("db", help="DB directory (from export-db)")
+    q.add_argument("positions", nargs="+",
+                   help="packed positions, decimal or 0x-hex")
+    _device_arg(q, "canonicalization")
     return p
 
 
@@ -162,14 +213,35 @@ def _error(msg: str) -> int:
     return 2
 
 
-def solve_main(argv=None) -> tuple[int, Optional[object]]:
-    """main() that also hands back the solve result (None on error)."""
-    from gamesmanmpi_tpu_torch.games import Connect4, NotPortedError, get_game
-    from gamesmanmpi_tpu_torch.resilience import faults, preempt
+def _device(name: str):
+    """-> (torch.device, None), or (None, exit code 2) without the card."""
     from gamesmanmpi_tpu_torch.utils.device import (
         DeviceUnavailable,
         resolve_device,
     )
+
+    try:
+        return resolve_device(name), None
+    except DeviceUnavailable as e:
+        return None, _error(str(e))
+
+
+def _get_game(spec: str):
+    """-> (game, None), or (None, exit code 2) for a bad or unported spec."""
+    from gamesmanmpi_tpu_torch.games import NotPortedError, get_game
+
+    try:
+        return get_game(spec), None
+    except NotPortedError as e:
+        return None, _error(str(e))
+    except (KeyError, ValueError) as e:
+        return None, _error(f"bad game spec {spec!r}: {e}")
+
+
+def solve_main(argv=None) -> tuple[int, Optional[object]]:
+    """main() that also hands back the solve's SolveResult (None on an
+    error, for an oracle-solved module, and for export-db and query)."""
+    from gamesmanmpi_tpu_torch.resilience import faults
 
     args = build_parser().parse_args(
         list(sys.argv[1:] if argv is None else argv))
@@ -178,12 +250,22 @@ def solve_main(argv=None) -> tuple[int, Optional[object]]:
         faults.configure_from_env()
     except ValueError as e:
         return _error(f"GAMESMAN_FAULTS: {e}"), None
-    try:
-        game = get_game(args.game)
-    except NotPortedError as e:
-        return _error(str(e)), None
-    except (KeyError, ValueError) as e:
-        return _error(f"bad game spec {args.game!r}: {e}"), None
+    if args.command == "export-db":
+        return _export_db(args, t0), None
+    if args.command == "query":
+        return _query(args), None
+    if (pathlib.Path(args.game).is_file()
+            and not args.game.lower().endswith(".json")):
+        return _solve_module(args, t0)
+    return _solve(args, t0)
+
+
+def _solve(args, t0: float) -> tuple[int, Optional[object]]:
+    from gamesmanmpi_tpu_torch.games import Connect4
+
+    game, rc = _get_game(args.game)
+    if game is None:
+        return rc, None
     family_base = (isinstance(game, Connect4) and not game.sym
                    and not args.paranoid and not args.table_out)
     # An explicit --engine dense accepts --checkpoint-dir (per-level cell
@@ -195,16 +277,11 @@ def solve_main(argv=None) -> tuple[int, Optional[object]]:
             "--engine dense needs a Connect-4-family game with sym=0 and "
             "no --paranoid/--table-out (those live in the classic "
             "engine)"), None
-    try:
-        device = resolve_device(args.device)
-    except DeviceUnavailable as e:
-        return _error(str(e)), None
+    device, rc = _device(args.device)
+    if device is None:
+        return rc, None
 
-    checkpointer = None
-    if args.checkpoint_dir:
-        from gamesmanmpi_tpu_torch.utils.checkpoint import LevelCheckpointer
-
-        checkpointer = LevelCheckpointer(args.checkpoint_dir)
+    checkpointer = _checkpointer(args)
     # Same platform policy as the reference: the dense engine is the
     # accelerator's pick; on the CPU, auto runs the classic engine.
     if args.engine == "dense" or (args.engine == "auto" and dense_eligible
@@ -219,13 +296,28 @@ def solve_main(argv=None) -> tuple[int, Optional[object]]:
         solver = Solver(game, device=device, paranoid=args.paranoid,
                         store_tables=not args.no_tables,
                         checkpointer=checkpointer)
+    return _run_solve(solver.solve, checkpointer, args, t0)
+
+
+def _checkpointer(args):
+    if not args.checkpoint_dir:
+        return None
+    from gamesmanmpi_tpu_torch.utils.checkpoint import LevelCheckpointer
+
+    return LevelCheckpointer(args.checkpoint_dir)
+
+
+def _run_solve(solve, checkpointer, args, t0: float):
+    """Run `solve()` and report it -> (exit code, SolveResult or None)."""
+    from gamesmanmpi_tpu_torch.resilience import preempt
+
     # Only a checkpointed solve gets the grace handlers: exit 75 promises
     # "rerun me on the same directory", and a solve with nothing sealed
     # should keep dying promptly on SIGTERM.
     restore_grace = (preempt.install_grace_handler()
                      if checkpointer is not None else (lambda: None))
     try:
-        result = solver.solve()
+        result = solve()
     except preempt.PreemptionRequested as e:
         print(f"preempted: {e}", file=sys.stderr)
         sys.stderr.flush()
@@ -234,6 +326,187 @@ def solve_main(argv=None) -> tuple[int, Optional[object]]:
         restore_grace()
     _report(result, 1, time.perf_counter() - t0, args)
     return 0, result
+
+
+def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
+    """The compat path (the reference's `_solve_main` module branch): a
+    module that declares `level_of` runs on the classic engine through
+    compat.TensorizedModule; any other module is solved by the host
+    oracle. --engine dense applies to the built-in Connect-4 family only
+    and exits 2."""
+    from gamesmanmpi_tpu_torch.compat import (
+        load_game_module,
+        solve_module,
+        solve_module_tensorized,
+    )
+
+    if args.engine == "dense":
+        return _error("--engine dense applies to the built-in Connect-4 "
+                      "family, not compat game modules"), None
+    try:
+        module = load_game_module(args.game)
+    except (AttributeError, ImportError) as e:
+        return _error(f"invalid game module {args.game!r}: {e}"), None
+    device, rc = _device(args.device)
+    if device is None:
+        return rc, None
+    engine_capable = hasattr(module, "level_of")
+    for flag, name in ((args.paranoid, "--paranoid"),
+                       (args.checkpoint_dir, "--checkpoint-dir")):
+        if flag and not engine_capable:
+            print(f"warning: {name} needs the tensorized compat path and "
+                  "is ignored on the host solve; define level_of(pos) in "
+                  "the module (max_moves is auto-derived) to drive the "
+                  "engine", file=sys.stderr)
+    if engine_capable:
+        checkpointer = _checkpointer(args)
+        return _run_solve(
+            lambda: solve_module_tensorized(
+                module, device=device, paranoid=args.paranoid,
+                checkpointer=checkpointer,
+                store_tables=not args.no_tables),
+            checkpointer, args, t0)
+    value, remoteness, table = solve_module(module)
+    print(f"game: {pathlib.Path(args.game).stem} (compat module)")
+    print(f"positions: {len(table)}")
+    print(f"value: {value_name(value)}")
+    print(f"remoteness: {remoteness}")
+    print(f"elapsed: {time.perf_counter() - t0:.3f}s")
+    if args.table_out:
+        from gamesmanmpi_tpu_torch.utils.checkpoint import save_table_npz
+
+        save_table_npz(args.table_out, table)
+        print(f"table written: {args.table_out}")
+    for q in args.query or ():
+        try:
+            hit = table.get(int(q, 0))
+        except ValueError as e:
+            print(f"query {q}: invalid position ({e})")
+            continue
+        if hit is None:
+            print(f"query {q}: not reachable")
+        else:
+            print(f"query {q}: value={value_name(hit[0])} "
+                  f"remoteness={hit[1]}")
+    return 0, None
+
+
+def _export_db(args, t0: float) -> int:
+    """The reference's `_cmd_export_db`: a fresh classic solve streamed
+    into the writer (Solver(store_tables=False, level_sink=...)), or a
+    checkpoint directory converted; then the optional opening book."""
+    from gamesmanmpi_tpu_torch.db import (
+        DbFormatError,
+        DbWriter,
+        export_checkpoint,
+    )
+    from gamesmanmpi_tpu_torch.utils.env import env_bool, env_int
+
+    game, rc = _get_game(args.game)
+    if game is None:
+        return rc
+    device, rc = _device(args.device)
+    if device is None:
+        return rc
+    compress = (env_bool("GAMESMAN_DB_COMPRESS", False)
+                if args.compress is None else bool(args.compress))
+    try:
+        if args.from_checkpoint:
+            from gamesmanmpi_tpu_torch.utils.checkpoint import (
+                LevelCheckpointer,
+            )
+
+            if not pathlib.Path(args.from_checkpoint).is_dir():
+                # Check BEFORE LevelCheckpointer: its constructor mkdirs,
+                # so a typo'd path would be created on disk and misreported
+                # as "no completed levels".
+                return _error(f"no such checkpoint directory: "
+                              f"{args.from_checkpoint}")
+            manifest = export_checkpoint(
+                LevelCheckpointer(args.from_checkpoint), game, args.game,
+                args.out, overwrite=args.overwrite, compress=compress)
+        else:
+            from gamesmanmpi_tpu_torch.solve.engine import Solver
+
+            writer = DbWriter(args.out, game, args.game,
+                              overwrite=args.overwrite, compress=compress)
+            try:
+                Solver(game, device=device, store_tables=False,
+                       level_sink=writer.add_level_table).solve()
+                manifest = writer.finalize()
+            except BaseException:  # incl. Ctrl-C mid-solve: the old
+                writer.abort()     # DB keeps serving, staging is gone
+                raise
+    except (DbFormatError, FileNotFoundError) as e:
+        # FileNotFoundError: a torn checkpoint (a manifest-listed level
+        # file deleted) — a usage-visible input problem, not a crash.
+        return _error(str(e))
+    book_plies = (env_int("GAMESMAN_BOOK_PLIES", 0)
+                  if args.book_plies is None else int(args.book_plies))
+    if book_plies > 0:
+        # After finalize on purpose: the book is scored through a real
+        # reader over the sealed DB, and sealing it rewrites the manifest
+        # exactly once more.
+        from gamesmanmpi_tpu_torch.db.book import build_book
+
+        manifest["book"] = build_book(args.out, book_plies, game=game,
+                                      device=device)
+    print(f"database written: {args.out}")
+    print(f"game: {manifest['game']}")
+    print(f"levels: {len(manifest['levels'])}")
+    print(f"positions: {manifest['num_positions']}")
+    book_rec = manifest.get("book")
+    if book_rec:
+        print(f"opening book: {book_rec['count']} entries to "
+              f"{book_rec['plies']} plies")
+    comp = manifest.get("compression")
+    if comp:
+        ratio = comp["raw_bytes"] / max(comp["stored_bytes"], 1)
+        print(f"compressed: {comp['stored_bytes']} bytes "
+              f"({ratio:.2f}x vs raw cells)")
+    print(f"elapsed: {time.perf_counter() - t0:.3f}s")
+    return 0
+
+
+def _query(args) -> int:
+    """The reference's `_cmd_query`, line for line."""
+    from gamesmanmpi_tpu_torch.db import DbFormatError, DbReader
+    from gamesmanmpi_tpu_torch.db.format import parse_position
+
+    device, rc = _device(args.device)
+    if device is None:
+        return rc
+    try:
+        reader = DbReader(args.db, device=device)
+    except DbFormatError as e:
+        return _error(str(e))
+    with reader:
+        states = []
+        order = []  # (query string, index into states or None)
+        for q in args.positions:
+            try:
+                state = parse_position(reader.game, q)
+                order.append((q, len(states)))
+                states.append(state)
+            except ValueError as e:
+                order.append((q, None))
+                print(f"query {q}: invalid position ({e})")
+        if not states:
+            return 0
+        values, rem, found, best = reader.lookup_best(states)
+        sentinel = int(reader.game.sentinel)
+        for q, i in order:
+            if i is None:
+                continue
+            if not found[i]:
+                print(f"query {q}: not in database")
+                continue
+            line = (f"query {q}: value={value_name(values[i])} "
+                    f"remoteness={int(rem[i])}")
+            if int(best[i]) != sentinel:
+                line += f" best={hex(int(best[i]))}"
+            print(line)
+    return 0
 
 
 def main(argv=None) -> int:

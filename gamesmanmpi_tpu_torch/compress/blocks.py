@@ -8,11 +8,17 @@ and crc32) travels apart from the data, in a manifest or an npz's
 ``decode_block`` checks the crc32 before decoding, so a torn or
 bit-rotted block raises BlockCorruptError (a ValueError) instead of
 returning a wrong array.
+
+``encode_array`` encodes the blocks of a large array on a thread pool
+(zlib and numpy's array loops release the GIL): the blocks are
+independent, so the bytes are the reference's single-threaded ones.
 """
 
 from __future__ import annotations
 
+import os
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -38,20 +44,33 @@ def split_blocks(n: int, block_positions: int):
         yield start, min(start + block_positions, n)
 
 
+#: Blocks per array below which encode_array stays on the calling thread.
+_PARALLEL_MIN_BLOCKS = 8
+
+
 def encode_array(arr: np.ndarray, block_positions: int,
                  candidates) -> tuple[dict, list]:
     """Encode one 1-D array into framed blocks. -> (index, [bytes]).
 
     The index is the JSON-serializable per-array record the caller
     embeds in its manifest: dtype, count, block_positions, and the
-    parallel per-block lists (codec, encoded length, crc32).
+    parallel per-block lists (codec, encoded length, crc32). Arrays of
+    _PARALLEL_MIN_BLOCKS blocks or more encode on one thread per CPU.
     """
     arr = np.ascontiguousarray(arr)
     if arr.ndim != 1:
         raise ValueError("block framing is for 1-D arrays")
+    blocks = [arr[start:stop] for start, stop in
+              split_blocks(arr.shape[0], block_positions)]
+    workers = min(os.cpu_count() or 1, len(blocks))
+    if len(blocks) >= _PARALLEL_MIN_BLOCKS and workers > 1:
+        with ThreadPoolExecutor(workers) as pool:
+            encoded = list(pool.map(
+                lambda block: encode_best(block, candidates), blocks))
+    else:
+        encoded = [encode_best(block, candidates) for block in blocks]
     codecs, lengths, crcs, blobs = [], [], [], []
-    for start, stop in split_blocks(arr.shape[0], block_positions):
-        name, blob = encode_best(arr[start:stop], candidates)
+    for name, blob in encoded:
         codecs.append(name)
         lengths.append(len(blob))
         crcs.append(zlib.crc32(blob) & 0xFFFFFFFF)

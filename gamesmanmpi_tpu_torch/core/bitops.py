@@ -20,35 +20,19 @@ included) at every boundary with the reference's dtypes: parity tests,
 import numpy as np
 import torch
 
+from gamesmanmpi_tpu_torch.core.host import (  # noqa: F401
+    SENTINEL32,
+    SENTINEL64,
+    sentinel_for,
+    state_dtype_for,
+)
+
 _M1 = 0x5555_5555_5555_5555
 _M2 = 0x3333_3333_3333_3333
 _M4 = 0x0F0F_0F0F_0F0F_0F0F
 
 #: The port's padding sentinel: INT64_MAX sorts after every real state.
 SENTINEL = (1 << 63) - 1
-
-#: The reference's sentinels, all ones in its unsigned state dtypes.
-SENTINEL64 = np.uint64(0xFFFF_FFFF_FFFF_FFFF)
-SENTINEL32 = np.uint32(0xFFFF_FFFF)
-
-
-def sentinel_for(dtype) -> np.number:
-    """The reference's all-ones sentinel of a state dtype (uint32/uint64)."""
-    dtype = np.dtype(dtype)
-    if dtype == np.uint64:
-        return SENTINEL64
-    if dtype == np.uint32:
-        return SENTINEL32
-    raise TypeError(f"unsupported state dtype {dtype}")
-
-
-def state_dtype_for(bits: int):
-    """The reference's state dtype for a game of `bits` state bits."""
-    if bits <= 31:
-        return np.uint32
-    if bits <= 63:
-        return np.uint64
-    raise ValueError(f"state does not fit 63 bits: {bits}")
 
 
 def to_reference(states, game) -> np.ndarray:

@@ -6,16 +6,20 @@ bits, the remoteness (clipped to MAX_REMOTENESS) in the other 30.
 torch has no ``<<``/``>>``/``+`` for uint32, so the arithmetic runs on an
 int64 widening and the result is narrowed back through an int32 view
 (same bits): :func:`pack_cells` returns uint32, :func:`unpack_cells`
-takes it. The numpy twins serve host-side writers (``--table-out``).
+takes it. The numpy twins live in core/host.py (no torch) and serve
+host-side writers (``--table-out``, the DB).
 """
 
-import numpy as np
 import torch
 
+from gamesmanmpi_tpu_torch.core.host import (  # noqa: F401
+    VALUE_BITS as _VALUE_BITS,
+    VALUE_MASK as _VALUE_MASK,
+    pack_cells_np,
+    unpack_cells_np,
+)
 from gamesmanmpi_tpu_torch.core.values import MAX_REMOTENESS
 
-_VALUE_BITS = 2
-_VALUE_MASK = (1 << _VALUE_BITS) - 1
 _U32 = 0xFFFF_FFFF
 
 
@@ -44,16 +48,3 @@ def unpack_cells(cells: torch.Tensor):
     return ((w & _VALUE_MASK).to(torch.uint8),
             (w >> _VALUE_BITS).to(torch.int32))
 
-
-def pack_cells_np(values, remoteness) -> np.ndarray:
-    """NumPy twin of pack_cells for host-side code."""
-    v = np.asarray(values).astype(np.uint32) & _VALUE_MASK
-    r = np.clip(remoteness, 0, MAX_REMOTENESS).astype(np.uint32)
-    return v | (r << np.uint32(_VALUE_BITS))
-
-
-def unpack_cells_np(cells):
-    """NumPy twin of unpack_cells."""
-    cells = np.asarray(cells)
-    return ((cells & _VALUE_MASK).astype(np.uint8),
-            (cells >> _VALUE_BITS).astype(np.int32))

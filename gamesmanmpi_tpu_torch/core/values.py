@@ -8,7 +8,6 @@ children; primitives have remoteness 0.
 """
 
 import numpy as np
-import torch
 
 # uint8 encodings. UNDECIDED doubles as "not yet resolved" in tables.
 UNDECIDED = 0
@@ -21,16 +20,15 @@ VALUE_NAMES = {UNDECIDED: "UNDECIDED", WIN: "WIN", LOSE: "LOSE", TIE: "TIE"}
 # negate: WIN <-> LOSE, TIE -> TIE, UNDECIDED -> UNDECIDED.
 _NEGATE_TABLE = np.array([UNDECIDED, LOSE, WIN, TIE], dtype=np.uint8)
 
-VALUE_DTYPE = torch.uint8
-REMOTENESS_DTYPE = torch.int32
-
 # The +inf pad of masked min-reductions (ops/combine.py); the reference
 # packs remoteness into 30 bits with the same bound.
 MAX_REMOTENESS = (1 << 30) - 1
 
 
-def negate(values: torch.Tensor) -> torch.Tensor:
+def negate(values):
     """Negate a uint8 value tensor (child value -> parent's view)."""
+    import torch
+
     table = torch.as_tensor(_NEGATE_TABLE, device=values.device)
     return table[values.long()]
 

@@ -9,11 +9,12 @@ import torch
 from gamesmanmpi_tpu_torch.core.values import (
     LOSE,
     MAX_REMOTENESS,
-    REMOTENESS_DTYPE,
     TIE,
-    VALUE_DTYPE,
     WIN,
 )
+
+VALUE_DTYPE = torch.uint8
+REMOTENESS_DTYPE = torch.int32
 
 
 def combine_children(child_values, child_remoteness, mask):

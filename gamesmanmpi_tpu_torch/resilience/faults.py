@@ -2,7 +2,8 @@
 gamesmanmpi_tpu/resilience/faults.py).
 
 Named fault points sit on the solve's host-side level paths (engine level
-steps, checkpoint seals and loads) and are armed
+steps, checkpoint seals and loads), the block store's write-behind and
+the DB reader's probe, and are armed
 from one environment variable, so every failure the checkpoint claims to
 survive can be injected on demand: in-process by tests, or into a
 subprocess for kill + resume + identical-tables chaos.
@@ -66,6 +67,11 @@ PORTED_POINTS = {
     "ckpt.save_frontier": "checkpoint: after a frontier level is sealed",
     "ckpt.save_level": "checkpoint: after a solved level is sealed",
     "ckpt.load_level": "checkpoint: at the top of a resume level load",
+    "store.writebehind": "block store: after a write-behind payload "
+                         "landed, before its ticket resolves",
+    "db.probe": "DB reader: top of each batched level probe",
+    "serve.block_decode": "DB reader: before a cold v2 block's read and "
+                          "decode",
 }
 
 #: Every point of the reference (gamesmanmpi_tpu/resilience/faults.py
@@ -73,10 +79,9 @@ PORTED_POINTS = {
 #: does not have yet.
 KNOWN_POINTS = dict(PORTED_POINTS, **{p: "not yet ported" for p in (
     "sharded.forward", "sharded.backward", "sharded.collective",
-    "coord.barrier", "coord.handshake", "db.probe", "serve.flush",
-    "serve.block_decode", "serve.worker_spawn", "serve.heartbeat",
-    "serve.reload", "registry.fetch", "registry.publish",
-    "registry.install", "jobs.claim", "store.writebehind",
+    "coord.barrier", "coord.handshake", "serve.flush",
+    "serve.worker_spawn", "serve.heartbeat", "serve.reload",
+    "registry.fetch", "registry.publish", "registry.install", "jobs.claim",
 )})
 
 KINDS = ("transient", "fatal", "delay", "kill", "torn", "enospc", "oom")

@@ -44,10 +44,11 @@ modes.
 Host synchronisation: one per forward level, inside ``torch.unique``
 (the unique count sizes the next level); the backward resolves in blocks
 of ``GAMESMAN_BACKWARD_BLOCK`` rows with no sync, and downloads a level's
-table when the result keeps it or a checkpoint seals it (one ``.cpu()``
-per array per level). Lookup misses and non-primitive
-positions without moves are counted on the device (``stats["misses"]``,
-read once at the end) and raise per level only under ``paranoid``.
+table when the result keeps it, a level sink takes it or a checkpoint
+seals it (one ``.cpu()`` per array per level). Lookup misses and
+non-primitive positions without moves are counted on the device
+(``stats["misses"]``, read once at the end) and raise per level only
+under ``paranoid``.
 """
 
 from __future__ import annotations
@@ -125,6 +126,11 @@ def canonical_scalar(game: TensorGame, state) -> tuple[int, int]:
         raise KeyError(f"state {state:#x} not reachable/solved")
     t = game.canonicalize(torch.tensor([state], dtype=torch.int64))
     return int(t[0]), int(game.level_of(t)[0])
+
+
+def undecided_mask(game: TensorGame, states):
+    """Which lanes hold real, non-terminal positions: [B] bool."""
+    return (states != SENTINEL) & (game.primitive(states) == UNDECIDED)
 
 
 def canonical_children(game: TensorGame, states, active):
@@ -253,6 +259,9 @@ class Solver:
     Solver(game, device="cuda").solve() -> SolveResult. device "cuda"
     (default) or "cpu"; a missing card raises DeviceUnavailable.
     store_tables=False keeps only the root level's table on the host.
+    level_sink(level, LevelTable) receives every level's table the moment
+    the backward has it (resolved or loaded from the checkpoint), also
+    with store_tables=False: the streamed DB export (db/writer.py).
     paranoid=True syncs each level's consistency counter and raises on a
     miss. use_provenance defaults to GAMESMAN_PROVENANCE (on); the
     backward block and the device-store budget come from
@@ -263,9 +272,11 @@ class Solver:
 
     def __init__(self, game: TensorGame, *, device="cuda",
                  paranoid: bool = False, store_tables: bool = True,
-                 use_provenance: Optional[bool] = None, checkpointer=None):
+                 use_provenance: Optional[bool] = None, checkpointer=None,
+                 level_sink=None):
         self.game = game
         self.checkpointer = checkpointer
+        self.level_sink = level_sink
         self.device = resolve_device(device)
         self.paranoid = paranoid
         self.store_tables = store_tables
@@ -346,15 +357,18 @@ class Solver:
                       resolved: Dict[int, LevelTable]) -> None:
         """A backward level's host tail. `table` is the sealed table when
         the level was loaded, None when it was resolved: then its table is
-        downloaded (one .cpu() per array) when the result keeps it or the
-        checkpoint seals it, and sealed."""
+        downloaded (one .cpu() per array) when the result keeps it, the
+        level sink takes it or the checkpoint seals it, and sealed."""
         keep = self.store_tables or k == root
         resolved_here = table is None
-        if resolved_here and (keep or self.checkpointer is not None):
+        if resolved_here and (keep or self.checkpointer is not None
+                              or self.level_sink is not None):
             table = LevelTable(host_states(), values.cpu().numpy(),
                                rem.cpu().numpy())
         if keep:
             resolved[k] = table
+        if self.level_sink is not None:
+            self.level_sink(k, table)
         if self.checkpointer is not None and resolved_here:
             self.checkpointer.save_level(k, table)
 

@@ -1,14 +1,15 @@
 """The block store (port of gamesmanmpi_tpu/store/).
 
 Sealed crc-verified reads (:mod:`store.sealed`), a byte-budget host-RAM
-tier (:class:`TieredCache`) and the prefetch engine
-(:class:`BlockStore`). The port's consumer is the checkpointer
-(utils/checkpoint.py). The reference's write-behind comes with the DB
-writer, and ``store/shm.py`` with serving; neither is ported yet.
+tier (:class:`TieredCache`) and the prefetch and write-behind engine
+(:class:`BlockStore`). Its consumers are the checkpointer
+(utils/checkpoint.py) and the DB (db/writer.py, db/reader.py).
+``store/shm.py`` comes with serving, not ported yet.
 """
 
 from gamesmanmpi_tpu_torch.store.blockstore import (  # noqa: F401
     BlockStore,
+    WriteTicket,
     default_store,
     file_key,
 )
@@ -17,9 +18,11 @@ from gamesmanmpi_tpu_torch.store.sealed import (  # noqa: F401
     BLOCKS_META_MEMBER,
     BlockedNpzView,
     CorruptSealError,
+    SealedBlockStream,
     TORN_SEAL_ERRORS,
     file_crc32,
     loadz,
+    open_npy_mmap,
     read_npz_members,
     verify_crc,
 )

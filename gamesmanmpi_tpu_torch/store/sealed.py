@@ -12,22 +12,29 @@ half of that contract:
   is pure: quarantine is the caller's move, on the caller's thread, so
   it may run on a prefetch thread;
 * :func:`loadz` / :class:`BlockedNpzView` — the one np.load door for
-  checkpoint npz files, transparent to ``blocks`` framing.
-
-The reference's DB-side handles (``SealedBlockStream``, ``open_npy_mmap``)
-belong to DB export and serving, not ported yet.
+  checkpoint npz files, transparent to ``blocks`` framing;
+* :func:`open_npy_mmap` / :class:`SealedBlockStream` — the DB reader's
+  doors to a v1 level (a memory-mapped .npy) and a v2 level (framed
+  block streams read block by block).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import zipfile
 import zlib
 
 import numpy as np
 
-from gamesmanmpi_tpu_torch.compress import decode_array
+from gamesmanmpi_tpu_torch.compress import (
+    BlockCorruptError,
+    decode_array,
+    decode_block,
+    index_offsets,
+    validate_index,
+)
 
 
 class CorruptSealError(ValueError):
@@ -155,3 +162,90 @@ def read_npz_members(path, names=None, crc=None):
         if names is None:
             return {n: np.asarray(z[n]) for n in z.files}
         return tuple(np.asarray(z[n]) for n in names)
+
+
+def open_npy_mmap(path):
+    """Memory-map a sealed plain .npy payload (v1 DB levels): the mmap
+    IS the cache for this format — a binary search touches O(log n)
+    pages — so it bypasses the byte-budget tier on purpose."""
+    return np.load(path, mmap_mode="r")
+
+
+class SealedBlockStream:
+    """Probe-side handle on one sealed pair of framed block streams
+    (a v2 DB level's keys+cells): resident block router (first_keys +
+    derived offsets) over fd reads with os.pread, so concurrent probing
+    threads (and forked processes sharing the fds) never contend on a
+    file position."""
+
+    def __init__(self, directory: pathlib.Path, level: int, rec: dict):
+        self.level = level
+        self.count = int(rec["count"])
+        self.keys_index = rec["keys_blocks"]
+        self.cells_index = rec["cells_blocks"]
+        self.first_keys = np.asarray(
+            rec.get("first_keys", []), dtype=np.uint64
+        )
+        self.keys_fd = self.cells_fd = -1
+        try:
+            self.keys_fd = os.open(directory / rec["keys"], os.O_RDONLY)
+            self.cells_fd = os.open(directory / rec["cells"], os.O_RDONLY)
+            # Validate the index against the real stream sizes at open:
+            # a truncated block file fails HERE (DbFormatError at reader
+            # construction / first touch), not as an out-of-range pread
+            # mid-probe.
+            validate_index(
+                self.keys_index,
+                stream_bytes=os.fstat(self.keys_fd).st_size,
+            )
+            validate_index(
+                self.cells_index,
+                stream_bytes=os.fstat(self.cells_fd).st_size,
+            )
+            if len(self.first_keys) != len(self.keys_index["lengths"]):
+                raise BlockCorruptError(
+                    f"level {level}: {len(self.first_keys)} first_keys "
+                    f"for {len(self.keys_index['lengths'])} blocks"
+                )
+            # Cache identity: (dev, ino) of the keys stream. Inode-based
+            # so entries survive nothing they shouldn't — an overwrite
+            # swap (DbWriter --overwrite) installs NEW files with new
+            # inodes, so a reader opened on the new directory can never
+            # hit the old directory's decoded blocks in a shared cache.
+            st = os.fstat(self.keys_fd)
+            self.ident = (int(st.st_dev), int(st.st_ino))
+        except BaseException:
+            self.close()
+            raise
+        self.keys_offsets = index_offsets(self.keys_index)
+        self.cells_offsets = index_offsets(self.cells_index)
+
+    @property
+    def num_blocks(self) -> int:
+        return len(self.first_keys)
+
+    def read_block(self, b: int):
+        """Decode block b -> (keys, cells) arrays (crc-verified)."""
+        kb = os.pread(
+            self.keys_fd,
+            int(self.keys_offsets[b + 1] - self.keys_offsets[b]),
+            int(self.keys_offsets[b]),
+        )
+        cb = os.pread(
+            self.cells_fd,
+            int(self.cells_offsets[b + 1] - self.cells_offsets[b]),
+            int(self.cells_offsets[b]),
+        )
+        return (
+            decode_block(self.keys_index, b, kb),
+            decode_block(self.cells_index, b, cb),
+        )
+
+    def close(self) -> None:
+        for fd in (self.keys_fd, self.cells_fd):
+            if fd >= 0:
+                try:
+                    os.close(fd)
+                except OSError:
+                    pass
+        self.keys_fd = self.cells_fd = -1

@@ -73,7 +73,7 @@ from gamesmanmpi_tpu_torch.utils.env import env_int, env_str
 _COMPRESS_BELOW = 64 << 20
 
 #: Manifest keys only the reference's sharded engine writes.
-_SHARDED_KEYS = ("sharded_levels", "forward_level_shards", "frontier_shards",
+SHARDED_KEYS = ("sharded_levels", "forward_level_shards", "frontier_shards",
                  "edge_levels")
 
 
@@ -307,7 +307,7 @@ class LevelCheckpointer:
         here instead of mixing tables). ``state_dtype`` is the game's
         reference state dtype, which state files are written in."""
         manifest = self.load_manifest()
-        sharded = [k for k in _SHARDED_KEYS if manifest.get(k)]
+        sharded = [k for k in SHARDED_KEYS if manifest.get(k)]
         if sharded:
             raise RuntimeError(
                 f"checkpoint directory {self.dir} was sealed by the sharded "
@@ -480,6 +480,18 @@ class LevelCheckpointer:
         (cells,) = self._read_npz(self.dir / f"dense_{level:04d}.npz",
                                   ("cells",))
         return cells
+
+
+def save_table_npz(path, table: dict) -> None:
+    """Dump a host-solve table ({pos: (value, remoteness)}, the compat
+    oracle's) as one npz: uint64 ``states`` in ascending order and their
+    uint32 ``cells``, as the reference writes it. Never block-framed
+    (``--table-out`` is read by plain np.load)."""
+    states = np.array(sorted(table), dtype=np.uint64)
+    values = np.array([table[int(s)][0] for s in states], dtype=np.uint8)
+    rems = np.array([table[int(s)][1] for s in states], dtype=np.int32)
+    _savez(path, allow_block_framing=False, states=states,
+           cells=pack_cells_np(values, rems))
 
 
 def save_result_npz(path, result) -> pathlib.Path:

@@ -2,8 +2,8 @@
 
 Every codec, block frame and block-framed checkpoint npz of the port is
 byte for byte the reference's on the same input, and each package decodes
-the other's. The block store's read and prefetch contracts are the
-reference's (tests/test_store.py); the block cache's LRU is the
+the other's. The block store's read, prefetch and write-behind contracts
+are the reference's (tests/test_store.py); the block cache's LRU is the
 reference's (tests/test_compress.py). Seeded numpy inputs; exact.
 """
 
@@ -96,6 +96,24 @@ def test_encode_best_and_framing_match_reference(cands, name):
     np.testing.assert_array_equal(ref_compress.decode_array(index, stream),
                                   arr)
     compress.validate_index(index, stream_bytes=len(stream))
+
+
+@pytest.mark.parametrize("cands", ["KEY_CANDIDATES", "CELL_CANDIDATES"])
+@pytest.mark.parametrize("name", ["keys_u64_wide", "keys_u64_dense",
+                                  "keys_u32", "cells_rem40", "u8_cells"])
+def test_parallel_block_encode_is_the_references_bytes(cands, name,
+                                                       monkeypatch):
+    """Arrays of many blocks encode on a thread pool: the same index and
+    blobs, in order, as the reference's one-thread loop."""
+    from gamesmanmpi_tpu_torch.compress import blocks
+
+    arr = ARRAYS[name]
+    monkeypatch.setattr(blocks.os, "cpu_count", lambda: 4)
+    assert -(-arr.shape[0] // 128) >= blocks._PARALLEL_MIN_BLOCKS
+    index, blobs = compress.encode_array(arr, 128, getattr(compress, cands))
+    rindex, rblobs = ref_compress.encode_array(arr, 128,
+                                               getattr(ref_compress, cands))
+    assert index == rindex and blobs == rblobs
 
 
 def test_block_crc_catches_corruption_and_index_mismatch():
@@ -363,3 +381,83 @@ def test_default_store_rebuilds_on_env_change(monkeypatch):
     monkeypatch.setenv("GAMESMAN_STORE_PREFETCH_THREADS", "0")
     s3 = default_store()
     assert s3 is not s2 and s3.prefetch_threads == 0
+    assert s3.writebehind
+    monkeypatch.setenv("GAMESMAN_STORE_WRITEBEHIND", "0")
+    s4 = default_store()
+    assert s4 is not s3 and (s4.prefetch_threads, s4.writebehind) == (
+        0, False)
+
+
+def test_writebehind_executes_in_order_and_drain_barriers(tmp_path):
+    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=0,
+                       writebehind=True)
+    order = []
+
+    def job(i):
+        def run():
+            (tmp_path / f"f{i}").write_bytes(b"x" * 10)
+            order.append(i)
+            return (10, 10)
+        return run
+
+    tickets = [store.write(job(i), path=str(tmp_path / f"f{i}"))
+               for i in range(8)]
+    store.drain()
+    assert order == list(range(8))  # FIFO: payload-before-seal rests on it
+    assert all(t.done() and t.result() == (10, 10) for t in tickets)
+    assert store.stats()["writebehind_queue_depth"] == 0
+    assert store.stats()["writebehind_queue_depth_peak"] >= 1
+    assert store.stats()["writebehind_writes"] == 8
+    store.close()
+    late = store.write(lambda: (1, 1))  # after close: runs inline
+    assert late.done() and late.result() == (1, 1)
+
+
+def test_writebehind_failure_surfaces_at_drain_once():
+    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=0,
+                       writebehind=True)
+
+    def boom():
+        raise OSError("disk full")
+
+    t = store.write(boom, path="doomed")
+    with pytest.raises(OSError, match="disk full"):
+        store.drain()
+    with pytest.raises(OSError, match="disk full"):
+        t.result()
+    store.drain()  # the error does not poison later seals
+    store.close()
+
+
+@pytest.mark.parametrize("writebehind", [True, False])
+def test_writebehind_injected_transient_resolves_ticket(writebehind):
+    """An armed transient at store.writebehind behaves like a write
+    failure: the ticket resolves with it, and the worker lives on."""
+    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=0,
+                       writebehind=writebehind)
+    faults.configure("store.writebehind:transient")
+    try:
+        if writebehind:
+            t = store.write(lambda: (1, 1), path="x")
+            with pytest.raises(faults.TransientFault):
+                store.drain()
+            with pytest.raises(faults.TransientFault):
+                t.result()
+        else:
+            with pytest.raises(faults.TransientFault):
+                store.write(lambda: (1, 1), path="x")
+        t2 = store.write(lambda: (2, 2), path="y")
+        store.drain()
+        assert t2.result() == (2, 2)
+    finally:
+        faults.clear()
+        store.close()
+
+
+def test_sync_mode_counts_inline_write_as_io_wait():
+    store = BlockStore(cache=TieredCache(1 << 20), prefetch_threads=0,
+                       writebehind=False)
+    t = store.write(lambda: (time.sleep(0.02), (1, 1))[1], path=None)
+    assert t.done() and t.result() == (1, 1)
+    assert store.stats()["io_wait_secs"] >= 0.02
+    store.close()

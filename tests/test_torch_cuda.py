@@ -206,3 +206,37 @@ def test_checkpointed_solve_on_card_seals_what_the_cpu_seals(engine,
     if engine == "dense":
         assert again.stats["levels_resumed"] == g.width * g.height + 1
         assert kernels.LAUNCHES["monotone_window_gather"] == before
+
+
+@pytest.mark.parametrize("spec", ["tictactoe:sym=1", "nim:heaps=3-4-5",
+                                  "connect4:w=4,h=4"])
+def test_db_export_and_reader_on_card_match_cpu(spec, tmp_path):
+    """export-db on the card writes the CPU's files, and DbReader on the
+    card (canonicalize and expand there) answers as one on the CPU."""
+    import hashlib
+    import io
+    from contextlib import redirect_stdout
+
+    from gamesmanmpi_tpu_torch.cli import main
+    from gamesmanmpi_tpu_torch.db import DbReader
+
+    _need_card()
+    for dev in ("cuda", "cpu"):
+        with redirect_stdout(io.StringIO()):
+            assert main(["export-db", spec, "--out", str(tmp_path / dev),
+                         "--compress", "--book-plies", "3", "--device",
+                         dev]) == 0
+    files = sorted(p.name for p in (tmp_path / "cpu").iterdir())
+    for name in files:
+        a, b = ((tmp_path / d / name).read_bytes() for d in ("cuda", "cpu"))
+        assert hashlib.sha256(a).digest() == hashlib.sha256(b).digest(), name
+    game = get_game(spec)
+    q = np.random.default_rng(0).integers(
+        0, 1 << game.state_bits, size=4096).astype(game.state_dtype)
+    with DbReader(tmp_path / "cuda", device="cuda") as card, \
+            DbReader(tmp_path / "cuda", device="cpu") as cpu:
+        init = np.array([game.initial_state()], dtype=game.state_dtype)
+        q = np.concatenate([init, card.book.positions, q])
+        for x, y in zip(card.lookup_best(q), cpu.lookup_best(q)):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)

@@ -75,6 +75,18 @@ def test_import_and_cpu_solve_leave_jax_out():
         "assert main(['solve', 'connect4:w=3,h=3,connect=3', '--device',"
         " 'cpu', '--engine', 'dense', '--checkpoint-dir', d + '/dense',"
         " '--no-tables', '--query', '0x111']) == 0\n"
+        "assert main(['export-db', 'tictactoe', '--out', d + '/db',"
+        " '--device', 'cpu', '--compress', '--book-plies', '2']) == 0\n"
+        "assert main(['export-db', 'tictactoe', '--from-checkpoint', d,"
+        " '--out', d + '/db1', '--device', 'cpu']) == 0\n"
+        "assert main(['query', d + '/db', '0', '0x1', '--device', 'cpu'])"
+        " == 0\n"
+        "assert main(['solve', 'examples/ref_games/chomp_33.py',"
+        " '--device', 'cpu']) == 0\n"
+        "assert main(['solve', 'examples/ref_games/ten_to_zero.py',"
+        " '--device', 'cpu']) == 0\n"
+        "import gamesmanmpi_tpu_torch.db.check, gamesmanmpi_tpu_torch.db.book\n"
+        "import gamesmanmpi_tpu_torch.compat, gamesmanmpi_tpu_torch.solve.oracle\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'gamesmanmpi_tpu'))\n"
@@ -88,6 +100,10 @@ def test_import_and_cpu_solve_leave_jax_out():
     assert "positions: 120" in proc.stdout  # the classic engine's nim
     assert "query 0x1: value=TIE remoteness=8" in proc.stdout
     assert "query 0x111: value=TIE remoteness=9" in proc.stdout
+    assert "opening book: 82 entries to 2 plies" in proc.stdout
+    assert "query 0x1: value=TIE remoteness=8 best=0x2001" in proc.stdout
+    assert "game: compat_chomp_33" in proc.stdout
+    assert "game: ten_to_zero (compat module)" in proc.stdout
     assert proc.stdout.strip().endswith("clean")
 
 

@@ -10,6 +10,9 @@ integrity (the reference's tests/test_resilience.py, on the port).
   uninterrupted tables.
 * Chaos in a subprocess of the CLI on the CPU: an injected kill exits 77
   and a torn seal 86; each resumes to the uninterrupted tables.
+* The DB's points: a kill or a torn payload at ``store.writebehind``
+  leaves an export without a manifest, which the reader refuses;
+  ``db.probe`` and ``serve.block_decode`` fire on the reader's probe.
 
 The port runs on the CPU; integers throughout, so tolerance zero.
 """
@@ -111,7 +114,8 @@ def test_known_points_are_the_references():
     assert sorted(faults.KNOWN_POINTS) == sorted(ref_faults.KNOWN_POINTS)
     assert set(faults.PORTED_POINTS) == {
         "engine.forward", "engine.dedup", "engine.backward",
-        "ckpt.save_level", "ckpt.load_level", "ckpt.save_frontier"}
+        "ckpt.save_level", "ckpt.load_level", "ckpt.save_frontier",
+        "store.writebehind", "db.probe", "serve.block_decode"}
     assert faults.KILL_EXIT_CODE == ref_faults.KILL_EXIT_CODE == 77
     assert faults.TORN_EXIT_CODE == ref_faults.TORN_EXIT_CODE == 86
     assert preempt.GRACE_EXIT_CODE == 75
@@ -128,7 +132,7 @@ def test_unported_point_refuses_to_arm(point, monkeypatch):
 
 
 def test_cli_refuses_a_bad_fault_spec(monkeypatch, capsys):
-    monkeypatch.setenv("GAMESMAN_FAULTS", "db.probe:kill")
+    monkeypatch.setenv("GAMESMAN_FAULTS", "serve.flush:kill")
     assert cli.main(["solve", "tictactoe", "--device", "cpu"]) == 2
     assert "not yet ported" in capsys.readouterr().err
 
@@ -353,3 +357,69 @@ def test_chaos_kill_and_torn_resume_to_identical_tables(spec, fault, code,
     assert_same_tables(resume(spec, d), clean[spec])
     if "torn" in fault and "save_level" in fault:
         assert list(d.glob("level_*.npz.corrupt"))
+
+
+# ------------------------------------------------------ the DB's points
+
+
+@pytest.mark.parametrize("fault,code", [("store.writebehind:kill:2", 77),
+                                        ("store.writebehind:torn:3", 86)])
+def test_writebehind_death_leaves_an_unsealed_export(fault, code, tmp_path):
+    """A death at store.writebehind (after a level's payload landed, in
+    the write-behind worker) leaves a directory without manifest.json,
+    which the reader refuses; a rerun with --overwrite is not needed,
+    the directory simply exports again."""
+    from gamesmanmpi_tpu_torch.db import DbFormatError, DbReader
+
+    d = tmp_path / "db"
+    env = dict(os.environ, GAMESMAN_FAULTS=fault)
+    argv = [sys.executable, "-m", "gamesmanmpi_tpu_torch.cli", "export-db",
+            C34, "--out", str(d), "--device", "cpu"]
+    proc = subprocess.run(argv, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == code, proc.stderr
+    assert "[faults] injecting" in proc.stderr
+    assert "database written" not in proc.stdout
+    assert list(d.glob("level_*.keys.npy"))
+    assert not (d / "manifest.json").exists()
+    if "torn" in fault:
+        assert "[faults] tore" in proc.stderr
+    with pytest.raises(DbFormatError, match="never finalized"):
+        DbReader(d, device="cpu")
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    with DbReader(d, device="cpu") as r:
+        assert r.num_positions == 2715
+
+
+def test_db_probe_and_block_decode_fire_on_the_reader(tmp_path):
+    from gamesmanmpi_tpu_torch.db import DbFormatError, DbReader, DbWriter
+
+    game = get_game(C34)
+    for compress in (False, True):
+        d = tmp_path / f"db{int(compress)}"
+        w = DbWriter(d, game, C34, compress=compress)
+        Solver(game, device="cpu", store_tables=False,
+               level_sink=w.add_level_table).solve()
+        w.finalize()
+    init = np.array([game.initial_state()], dtype=game.state_dtype)
+    faults.configure("db.probe:fatal:2")
+    with DbReader(tmp_path / "db0", device="cpu") as r:
+        assert r.lookup(init)[2][0]
+        with pytest.raises(FatalFault):  # the second probe
+            r.lookup(init)
+    faults.configure("serve.block_decode:fatal")
+    with DbReader(tmp_path / "db1", device="cpu") as r:
+        with pytest.raises(FatalFault):
+            r.lookup(init)
+    # A decode that fails with an I/O error is a reader fault, never a
+    # wrong answer: DbFormatError, as in the reference.
+    faults.configure("serve.block_decode:enospc")
+    with DbReader(tmp_path / "db1", device="cpu") as r:
+        with pytest.raises(DbFormatError, match="unreadable"):
+            r.lookup(init + 1)
+    faults.clear()
+    with DbReader(tmp_path / "db1", device="cpu") as r:
+        assert r.lookup(init)[2][0] and r.cache_stats()["misses"] >= 1
+
