@@ -76,8 +76,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              `lookup_best` equal to a CPU reader's on every lane, each
              best move a legal child realizing the value; and a `query`
              child printing the in-process reader's lines.
+13. serve 5x5 — serving over phase 12's databases, in CLI children
+             (`python -m gamesmanmpi_tpu_torch serve`): a 2-worker fleet
+             on the card over v1 (spawn mode, each worker's seconds to
+             ready, peak RSS and device memory), a fixed 256-position
+             set and a 10 s tools/load_gen.py load (concurrency 8, 8
+             positions per request, zipf 1.1 over 4,096 sampled
+             reachable states plus the reachable ones among 2^16 random
+             states) held to the classic tables; a second load with one
+             worker SIGKILLed (dropped at most the 8 in flight, one
+             restart, the replacement ready); a third under POST /reload
+             with no failed request; SIGTERM exits 0. The same fleet
+             with --device cpu for the device comparison. Then v2 +
+             book: a single process under 5 s of conditional GETs (304s,
+             book hits) and a 2-worker fleet's shm counters.
 
-Then the kernels line, the `nvidia-smi` name/power-limit line, and last
+Then the script's seconds, the kernels line, the `nvidia-smi`
+name/power-limit line, and last
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or of the JAX
 package, and exits non-zero without printing a result when there is no
 card (or when run without the rest of the repository beside it).
@@ -752,11 +767,11 @@ def checkpoint_dense_phase(dense_result, tmp, spec=C55,
          secs=time.perf_counter() - t0)
 
 
-def rss_bytes():
-    """This process's resident set now (/proc/self/statm), or None where
-    the kernel does not report it."""
+def rss_bytes(pid="self"):
+    """The resident set of process `pid` (this one by default) now
+    (/proc/<pid>/statm), or None where the kernel does not report it."""
     try:
-        pages = int(pathlib.Path("/proc/self/statm").read_text().split()[1])
+        pages = int(pathlib.Path(f"/proc/{pid}/statm").read_text().split()[1])
     except (OSError, IndexError, ValueError):
         return None
     return pages * os.sysconf("SC_PAGE_SIZE")
@@ -924,7 +939,8 @@ def db_phase(result, tmp, spec=C55, answer=(69763700, "TIE", 25),
     width. `result` is phase 9's in-process classic solve of `spec`, and
     tmp / "classic_full" phase 10's uninterrupted checkpoint of it;
     `extra` CLI arguments (`--device cpu`) rehearse the phase on the CPU
-    at a small board."""
+    at a small board. -> the v1 and the v2 + book directories (phase
+    13 serves them; the caller removes them)."""
     import numpy as np
 
     from gamesmanmpi_tpu_torch.core.bitops import to_reference
@@ -1033,11 +1049,378 @@ def db_phase(result, tmp, spec=C55, answer=(69763700, "TIE", 25),
                     **secs),
          query=dict(lines=lines, secs=secs_query, peak_rss_bytes=rss_q),
          secs=time.perf_counter() - t0)
-    for d in (a, b, c):
-        shutil.rmtree(d)
+    shutil.rmtree(b)
+    return a, c
+
+
+class PidsRss:
+    """Per-pid peak of rss_bytes() over a `with` block, sampled every
+    100 ms on a thread; `pids()` names the processes to watch (the
+    fleet's workers, re-read each sample, so a replacement is watched
+    from its first sample)."""
+
+    def __init__(self, pids):
+        self.pids = pids
+        self.peak = {}
+
+    def __enter__(self):
+        import threading
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.1):
+            for pid in self.pids():
+                now = rss_bytes(pid)
+                if now is not None:
+                    self.peak[pid] = max(self.peak.get(pid, 0), now)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+def http_json(url, payload=None, timeout=30):
+    import urllib.request
+
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(url, data=data, method="POST"
+                                 if data is not None else "GET")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def http_text(url, timeout=30):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def wait_for(pred, timeout, what):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            out = pred()
+        except OSError:  # the control port is not up yet
+            out = None
+        if out:
+            return out
+        time.sleep(0.1)
+    raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+
+
+class Served:
+    """`python -m gamesmanmpi_tpu_torch serve ARGS` as a child: its
+    banner's ports, stopped (SIGTERM, then SIGKILL) on exit."""
+
+    def __init__(self, argv):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "gamesmanmpi_tpu_torch", "serve", *argv],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        banner = self.proc.stdout.readline()
+        ports = re.findall(r"127\.0\.0\.1:(\d+)", banner)
+        if not ports:
+            stop(self.proc)
+            raise AssertionError(f"serve {argv}: no banner: {banner!r} "
+                                 f"{self.proc.stderr.read()[-3000:]}")
+        self.base = f"http://127.0.0.1:{ports[0]}"
+        self.control = (f"http://127.0.0.1:{ports[1]}" if len(ports) > 1
+                        else None)
+
+    def healthz(self):
+        return http_json(self.control + "/healthz")
+
+    def worker_pids(self):
+        try:
+            return [w["pid"] for w in self.healthz()["workers"].values()
+                    if w["pid"]]
+        except OSError:
+            return []
+
+    def terminate(self, timeout=60):
+        """SIGTERM, then the exit code (SIGKILL past `timeout`)."""
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=timeout)
+        finally:
+            stop(self.proc)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.terminate(timeout=30)
+        return False
+
+
+def load_gen(base, pos_file, secs, out_json, get=False, conc=8):
+    """tools/load_gen.py as a child: concurrency 8, 8 positions per
+    request, zipf(1.1) over `pos_file` (or single-position conditional
+    GETs with `get`). -> Popen; `load_result` reads its record."""
+    argv = [sys.executable, str(REPO / "tools" / "load_gen.py"), base,
+            "--positions-file", str(pos_file), "--duration", str(secs),
+            "--concurrency", str(conc), "--chunk-size", "8",
+            "--dist", "zipf:1.1", "--json", str(out_json)]
+    if get:
+        argv.append("--get")
+    return subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def load_result(proc, out_json, secs):
+    try:
+        out, err = proc.communicate(timeout=secs + 120)
+    finally:
+        stop(proc)
+    if not pathlib.Path(out_json).exists():
+        raise AssertionError(f"load_gen wrote no record (rc "
+                             f"{proc.returncode}): {out[-1000:]} "
+                             f"{err[-2000:]}")
+    return json.loads(pathlib.Path(out_json).read_text())
+
+
+def load_fields(rec):
+    return {k: rec[k] for k in ("requests", "ok", "not_modified", "shed",
+                                "shed_retried", "errors", "dropped",
+                                "mismatches", "qps", "p50_ms", "p95_ms",
+                                "p99_ms")}
+
+
+def check_answers(rec, truth, what):
+    """Every answer the load saw equals the classic tables."""
+    bad = [(p, a) for p, a in rec["answers"].items()
+           if (a[0], a[1]) != truth[int(p, 0)][1:]]
+    if rec["errors"] or rec["mismatches"] or bad:
+        raise AssertionError(f"{what}: errors {rec['errors']}, mismatches "
+                             f"{rec['mismatches']}, wrong answers "
+                             f"{bad[:3]}")
+    return len(rec["answers"])
+
+
+def smi(query):
+    """nvidia-smi's csv answer to `query` (e.g. --query-gpu=memory.used),
+    without header or units; "" where nvidia-smi is missing."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", query, "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return ""
+
+
+def smi_apps():
+    """{pid: device MiB} of the processes on the card (nvidia-smi
+    --query-compute-apps): empty where it lists none (a container's own
+    PID namespace)."""
+    apps = {}
+    for line in smi("--query-compute-apps=pid,used_memory").splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = parts[1]
+    return apps
+
+
+def smi_used_mib():
+    """The card's used memory in MiB (nvidia-smi), or None."""
+    out = smi("--query-gpu=memory.used").splitlines()
+    return int(out[0]) if out and out[0].strip().isdigit() else None
+
+
+def metric_sum(text, name):
+    """Sum of every sample of metric `name` in Prometheus text."""
+    total = 0.0
+    for m in re.finditer(rf"^{name}(?:{{[^}}]*}})? (\S+)$", text, re.M):
+        total += float(m.group(1))
+    return total
+
+
+def batch_costs(base):
+    """Per worker (either may answer /metrics.json): the mean coalesced
+    batch's positions and its flush milliseconds (canonicalize, probe,
+    expand, probe again)."""
+    out = {}
+    for _ in range(8):
+        m = http_json(base + "/metrics.json")
+        if m.get("batches"):
+            out[str(m.get("worker"))] = dict(
+                batches=m["batches"], mean_batch_size=m["mean_batch_size"],
+                mean_flush_ms=1e3 * m["batch_secs_total"] / m["batches"])
+    return out
+
+
+def fleet_run(db, device, pos_file, truth, fixed, tmp, secs, chaos):
+    """One 2-worker fleet on `device` over `db`: ready, the `fixed`
+    256-position set and a zipf load over `pos_file` held to the tables
+    (`truth`, `fixed`: {state: (found, value name, remoteness)}); with
+    `chaos`, a second load with one worker SIGKILLed and a third, twice
+    as long, under POST /reload. -> the phase's record for this fleet."""
+    t0 = time.perf_counter()
+    rec = {"device": device}
+    used_before = smi_used_mib()
+    with Served([str(db), "--workers", "2", "--port", "0",
+                 "--control-port", "0", "--device", device]) as fleet, \
+            PidsRss(fleet.worker_pids) as rss:
+        st = wait_for(lambda: (s := fleet.healthz())["ready"] == 2 and s,
+                      300, f"{device} fleet ready")
+        rec["secs_to_ready"] = time.perf_counter() - fleet.t0
+        rec["spawn_mode"] = st["spawn_mode"]
+        rec["workers"] = {i: {"pid": w["pid"],
+                              "warmup_secs": w["warmup_secs"],
+                              "verified": w["verified"]}
+                          for i, w in st["workers"].items()}
+        body = http_json(fleet.base + "/query",
+                         {"positions": [hex(p) for p in fixed]})
+        for p, r in zip(fixed, body["results"]):
+            want = fixed[p]
+            got = ((r["found"], r["value"], r["remoteness"]) if r["found"]
+                   else (False,))
+            if got != (want if want[0] else (False,)):
+                raise AssertionError(f"{device} fleet: {hex(p)} answered "
+                                     f"{r}, tables say {want}")
+        out = tmp / f"load_{device}.json"
+        first = load_result(load_gen(fleet.base, pos_file, secs, out), out,
+                            secs)
+        rec["answers_checked"] = check_answers(first, truth,
+                                               f"{device} load")
+        rec["load"] = load_fields(first)
+        rec["batches"] = batch_costs(fleet.base)
+        # Per worker where nvidia-smi lists the processes; else the
+        # card's used memory with the fleet up, over its use before
+        # (the supervisor never touches the card).
+        apps = smi_apps()
+        rec["device_mib"] = {i: apps.get(w["pid"]) for i, w in
+                             rec["workers"].items()}
+        used = smi_used_mib()
+        rec["device_used_mib_fleet"] = (
+            used - used_before if None not in (used, used_before) else None)
+        if chaos:
+            out = tmp / f"load_{device}_kill.json"
+            load = load_gen(fleet.base, pos_file, secs, out)
+            time.sleep(secs / 3)
+            victim = fleet.healthz()["workers"]["0"]["pid"]
+            t_kill = time.perf_counter()
+            os.kill(victim, signal.SIGKILL)
+            killed = load_result(load, out, secs)
+            check_answers(killed, truth, f"{device} load under SIGKILL")
+            if killed["dropped"] > 8:
+                raise AssertionError(f"SIGKILL dropped {killed['dropped']} "
+                                     "> 8 requests in flight")
+            st = wait_for(lambda: (s := fleet.healthz())["ready"] == 2
+                          and s["workers"]["0"]["pid"] != victim and s,
+                          300, "replacement ready")
+            restarts = sum(w["restarts"] for w in st["workers"].values())
+            if restarts != 1:
+                raise AssertionError(f"restarts {restarts}, not 1")
+            rec["kill"] = dict(load_fields(killed), restarts=restarts,
+                               secs_to_replacement_ready=(
+                                   time.perf_counter() - t_kill),
+                               replacement_warmup_secs=st["workers"]["0"]
+                               ["warmup_secs"])
+            out = tmp / f"load_{device}_reload.json"
+            load = load_gen(fleet.base, pos_file, 2 * secs, out)
+            time.sleep(1.0)
+            t_reload = time.perf_counter()
+            http_json(fleet.control + "/reload", {})
+            wait_for(lambda: (s := fleet.healthz())["reloads_done"] == 1
+                     and s["ready"] == 2 and s, 300, "rolling reload")
+            secs_reload = time.perf_counter() - t_reload
+            rolled = load_result(load, out, 2 * secs)
+            check_answers(rolled, truth, f"{device} load under reload")
+            failed = (rolled["errors"] + rolled["dropped"] + rolled["shed"]
+                      + rolled["shed_retried"])
+            if failed:
+                raise AssertionError(f"reload: {failed} failed requests")
+            rec["reload"] = dict(load_fields(rolled), secs=secs_reload)
+        rec["rc"] = fleet.terminate()
+        if rec["rc"] != 0:
+            raise AssertionError(f"fleet exited {rec['rc']} on SIGTERM")
+    rec["peak_rss_bytes"] = sorted(rss.peak.values())
+    rec["secs"] = time.perf_counter() - t0
+    return rec
+
+
+def serve_phase(result, tmp, v1, v2, extra=(), secs=10.0, get_secs=5.0):
+    """Phase 13: serving on the card over phase 12's databases. `v1`
+    and `v2` are phase 12's v1 and v2 + book exports of `result`'s
+    game; `extra` (`--device cpu`) rehearses the phase on the CPU."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch.core.bitops import to_reference
+    from gamesmanmpi_tpu_torch.core.values import value_name
+
+    t0 = time.perf_counter()
+    device = "cpu" if "cpu" in extra else "cuda"
+    g = result.game
+    s_states, s_values, s_rem = sample_states(result, 4096, seed=14)
+    rand = np.random.default_rng(15).integers(0, 1 << g.state_bits,
+                                              size=1 << 16)
+    r_found, r_values, r_rem = table_truth(result, rand, device)
+    states = np.concatenate([s_states, rand[r_found]])
+    values = np.concatenate([s_values, r_values[r_found]])
+    rem = np.concatenate([s_rem, r_rem[r_found]])
+    q = to_reference(states, g)
+    truth = {int(p): (True, value_name(v), int(r))
+             for p, v, r in zip(q, values, rem)}
+    pos_file = tmp / "positions.txt"
+    pos_file.write_text("\n".join(hex(int(p)) for p in q))
+    # The fixed set: 128 reachable, 128 random states (found or not).
+    fq = to_reference(np.concatenate([s_states[:128], rand[:128]]), g)
+    fixed = {int(p): (bool(f), value_name(v), int(r)) for p, f, v, r in zip(
+        fq, np.concatenate([np.ones(128, dtype=bool), r_found[:128]]),
+        np.concatenate([s_values[:128], r_values[:128]]),
+        np.concatenate([s_rem[:128], r_rem[:128]]))}
+    card = fleet_run(v1, device, pos_file, truth, fixed, tmp, secs,
+                     chaos=True)
+    cpu = fleet_run(v1, "cpu", pos_file, truth, fixed, tmp, secs,
+                    chaos=False)
+    # v2 + book: a single process under conditional GETs (book hits,
+    # 304s), then a 2-worker fleet whose workers share decoded blocks
+    # through the shm segment.
+    with Served([str(v2), "--port", "0", "--device", device]) as one:
+        wait_for(lambda: http_json(one.base + "/healthz")["status"] == "ok",
+                 300, "single-process server")
+        out = tmp / "load_get.json"
+        got = load_result(load_gen(one.base, pos_file, get_secs, out,
+                                   get=True), out, get_secs)
+        if got["errors"] or got["mismatches"]:
+            raise AssertionError(f"GET load: {load_fields(got)}")
+        text = http_text(one.base + "/metrics")
+        single = dict(load_fields(got),
+                      book_hits=metric_sum(text, "gamesman_book_hits_total"),
+                      rc=one.terminate())
+    with Served([str(v2), "--workers", "2", "--port", "0",
+                 "--control-port", "0", "--device", device]) as fleet:
+        wait_for(lambda: fleet.healthz()["ready"] == 2, 300,
+                 "v2 fleet ready")
+        out = tmp / "load_v2.json"
+        got = load_result(load_gen(fleet.base, pos_file, get_secs, out),
+                          out, get_secs)
+        check_answers(got, truth, "v2 fleet load")
+        shm = {}
+        for _ in range(8):  # /metrics answers from either worker
+            text = http_text(fleet.base + "/metrics")
+            for name in ("gamesman_shm_hits_total",
+                         "gamesman_shm_misses_total",
+                         "gamesman_shm_stores_total"):
+                for m in re.finditer(rf'^{name}{{worker="(\d)"}} (\S+)$',
+                                     text, re.M):
+                    shm[f"{name}[{m.group(1)}]"] = float(m.group(2))
+        v2_fleet = dict(load_fields(got), shm=shm, rc=fleet.terminate())
+    emit(f"serve {g.name}", positions_file=len(truth), fleet_card=card,
+         fleet_cpu=cpu, single_v2_get=single, fleet_v2=v2_fleet,
+         secs=time.perf_counter() - t0)
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -1072,7 +1455,8 @@ def main() -> int:
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
     try:
         checkpoint_classic_phase(classic_result, tmp)
-        db_phase(classic_result, tmp)
+        v1, v2 = db_phase(classic_result, tmp)
+        serve_phase(classic_result, tmp, v1, v2)
         del classic_result
         checkpoint_dense_phase(dense_result, tmp)
     finally:
@@ -1091,6 +1475,7 @@ def main() -> int:
                 "bound_ms", "bound_share")} for s in m["shapes"]]
         return r
 
+    emit("total", secs=time.perf_counter() - t_script)
     print(json.dumps({"kernels": [
         # Launches on the path that runs each kernel: the dense solve for
         # the gather (times at its largest launch's shape, then every

@@ -1,4 +1,5 @@
-"""Command line of the torch port: `solve`, `export-db` and `query`.
+"""Command line of the torch port: `solve`, `export-db`, `query` and
+`serve`.
 
     gamesman-solve-torch solve GAME [--engine auto|dense|classic]
                          [--device cuda|cpu] [--no-tables] [--paranoid]
@@ -9,6 +10,8 @@
                          [--overwrite] [--compress] [--book-plies N]
                          [--device cuda|cpu]
     gamesman-solve-torch query DB POS... [--device cuda|cpu]
+    gamesman-solve-torch serve DB [--workers N] [--fleet-manifest F]
+                         [--control-port P] [--port P] [--device cuda|cpu]
     python -m gamesmanmpi_tpu_torch.cli solve connect4:w=5,h=5
 
 `solve` prints the reference CLI's rank-0 block (gamesmanmpi_tpu/cli.py
@@ -39,7 +42,11 @@ into the writer, or converted from a classic --checkpoint-dir
 (--from-checkpoint). --compress (default GAMESMAN_DB_COMPRESS) writes
 format v2; --book-plies (default GAMESMAN_BOOK_PLIES) seals an opening
 book. `query` answers positions from a database, each with its best
-move, the reference's lines.
+move, the reference's lines. `serve` answers queries over HTTP, the
+reference's endpoints, bodies and status codes (serve/server.py): one
+in-process server, or with --workers N (or --fleet-manifest) a
+supervised fleet of N worker processes on one port (serve/supervisor.py),
+whose readers run on --device after the fork.
 
 Every command runs on the card unless --device cpu is given; without a
 card it exits 2 with a message. It returns 0 on success, 75 when
@@ -127,6 +134,57 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("positions", nargs="+",
                    help="packed positions, decimal or 0x-hex")
     _device_arg(q, "canonicalization")
+
+    ps = sub.add_parser(
+        "serve", help="serve POST /query, GET /healthz, GET /metrics")
+    ps.add_argument("db", nargs="?", default=None,
+                    help="DB directory (from export-db); omit when "
+                    "--fleet-manifest names the DBs")
+    ps.add_argument("--host", default="127.0.0.1")
+    ps.add_argument("--port", type=int, default=8947,
+                    help="0 = ephemeral (the bound port is printed)")
+    ps.add_argument(
+        "--workers", type=int, default=None, metavar="N",
+        help="fleet mode: supervise N worker processes sharing this "
+        "port's accept queue (heartbeat liveness, backoff restart, "
+        "rolling reload; docs/SERVING.md). 0/unset = single in-process "
+        "server (env GAMESMAN_SERVE_WORKERS)")
+    ps.add_argument(
+        "--fleet-manifest", default=None, metavar="FILE",
+        help="route multiple game DBs from one fleet manifest JSON "
+        '({"version": 1, "games": [{"name": ..., "db": ...}]}); '
+        "POST /query/<name> selects the game. Implies fleet mode; "
+        "SIGHUP or POST /reload on the control port rolls the fleet "
+        "onto a re-read manifest")
+    ps.add_argument(
+        "--control-port", type=int, default=0, metavar="P",
+        help="fleet mode: supervisor control endpoint port (fleet-level "
+        "GET /healthz aggregating per-worker state, GET /metrics, "
+        "POST /reload); 0 = ephemeral (printed in the banner)")
+    ps.add_argument(
+        "--batch-window-ms", type=float, default=2.0,
+        help="micro-batch coalescing window: concurrent requests arriving "
+        "within it flush as ONE vectorized DB probe")
+    ps.add_argument("--cache-size", type=int, default=65536,
+                    help="LRU hot-position cache entries (0 disables)")
+    ps.add_argument(
+        "--request-timeout-ms", type=float, default=None,
+        help="per-request deadline on the batcher: a request not "
+        "answered within it gets 503 + Retry-After instead of hanging "
+        "(env GAMESMAN_REQUEST_TIMEOUT in seconds; 0 = no deadline)")
+    ps.add_argument(
+        "--max-queue", type=int, default=1024,
+        help="load shedding: refuse (503) new queries when this many "
+        "requests are already parked in the coalescing queue")
+    ps.add_argument("--jsonl", default=None,
+                    help="write per-batch serving metrics to this JSONL file")
+    ps.add_argument(
+        "--no-trace", action="store_true",
+        help="disable query-path tracing + tail sampling (sets "
+        "GAMESMAN_TRACE=0 for this process and, in fleet mode, every "
+        "worker; GET /traces then serves an empty ring)")
+    ps.add_argument("-v", "--verbose", action="store_true")
+    _device_arg(ps, "canonicalization and best-move expansion")
     return p
 
 
@@ -213,7 +271,7 @@ def _error(msg: str) -> int:
     return 2
 
 
-def _device(name: str):
+def _device(name: str, fork_safe: bool = False):
     """-> (torch.device, None), or (None, exit code 2) without the card."""
     from gamesmanmpi_tpu_torch.utils.device import (
         DeviceUnavailable,
@@ -221,6 +279,8 @@ def _device(name: str):
     )
 
     try:
+        if fork_safe:
+            return resolve_device(name, fork_safe=True), None
         return resolve_device(name), None
     except DeviceUnavailable as e:
         return None, _error(str(e))
@@ -254,6 +314,8 @@ def solve_main(argv=None) -> tuple[int, Optional[object]]:
         return _export_db(args, t0), None
     if args.command == "query":
         return _query(args), None
+    if args.command == "serve":
+        return _serve(args), None
     if (pathlib.Path(args.game).is_file()
             and not args.game.lower().endswith(".json")):
         return _solve_module(args, t0)
@@ -507,6 +569,165 @@ def _query(args) -> int:
                 line += f" best={hex(int(best[i]))}"
             print(line)
     return 0
+
+
+def _build_logger(args):
+    """The --jsonl/--verbose logger of `serve` (the reference's
+    ``_build_logger``), or None when neither flag is set."""
+    from gamesmanmpi_tpu_torch.utils.metrics import (
+        JsonlLogger,
+        StdoutLogger,
+        TeeLogger,
+    )
+
+    if not (args.jsonl or args.verbose):
+        return None
+    return TeeLogger(JsonlLogger(args.jsonl) if args.jsonl else None,
+                     StdoutLogger() if args.verbose else None)
+
+
+def _logger_scope(logger):
+    """Context that closes `logger` on exit, or a no-op without one."""
+    import contextlib
+
+    return logger if logger is not None else contextlib.nullcontext()
+
+
+def _serve(args) -> int:
+    """The reference's `_cmd_serve`: one in-process QueryServer until
+    SIGINT/SIGTERM, which drain it; --workers N or --fleet-manifest hand
+    over to the supervised fleet."""
+    import os
+    import signal
+    import threading
+
+    from gamesmanmpi_tpu_torch.db import DbFormatError, DbReader
+    from gamesmanmpi_tpu_torch.serve import QueryServer
+    from gamesmanmpi_tpu_torch.utils.env import env_int
+
+    workers = (env_int("GAMESMAN_SERVE_WORKERS", 0)
+               if args.workers is None else args.workers)
+    if args.no_trace:
+        # Env, not a constructor knob: workers (fork and exec) inherit
+        # the environment, so one setting covers the whole fleet.
+        os.environ["GAMESMAN_TRACE"] = "0"
+    if args.db is None and not args.fleet_manifest:
+        return _error("serve needs a DB directory (or --fleet-manifest)")
+    if workers > 0 or args.fleet_manifest:
+        return _serve_fleet(args, max(1, workers))
+    device, rc = _device(args.device)
+    if device is None:
+        return rc
+    try:
+        reader = DbReader(args.db, device=device)
+    except DbFormatError as e:
+        return _error(str(e))
+    logger = _build_logger(args)
+    with _logger_scope(logger):
+        try:
+            server = QueryServer(
+                reader, host=args.host, port=args.port,
+                window=args.batch_window_ms / 1e3,
+                cache_size=args.cache_size, max_queue=args.max_queue,
+                request_timeout=(args.request_timeout_ms / 1e3
+                                 if args.request_timeout_ms is not None
+                                 else None),
+                logger=logger)
+        except OSError as e:  # port in use / unbindable host
+            return _error(f"cannot bind {args.host}:{args.port} ({e})")
+        print(f"serving {reader.game.name} ({reader.num_positions} "
+              f"positions) on http://{args.host}:{server.port} "
+              "(POST /query, GET /healthz, GET /metrics, GET /traces)",
+              flush=True)  # a harness tailing the pipe needs the banner
+        # SIGINT/SIGTERM flip /healthz to "draining" (new queries 503),
+        # let in-flight requests and the coalescing batch finish, then
+        # tear down.
+        stop = threading.Event()
+        previous = {}
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                previous[sig] = signal.signal(sig,
+                                              lambda *_: stop.set())
+            except ValueError:  # not the main thread (programmatic use)
+                pass
+        server.start()
+        try:
+            stop.wait()
+            print("draining: refusing new queries, flushing in-flight "
+                  "batches", file=sys.stderr)
+            server.begin_drain()
+        finally:
+            server.stop()
+            reader.close()
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
+    return 0
+
+
+def _serve_fleet(args, workers: int) -> int:
+    """The reference's `_cmd_serve_fleet`: the supervised multi-worker
+    fleet. The parent checks for the card through NVML and opens its
+    readers without a device, so it never initializes CUDA and may fork
+    its workers (serve/supervisor.ServeSupervisor._use_fork).
+    SIGTERM/SIGINT drain the whole fleet; SIGHUP rolls it onto a re-read
+    manifest."""
+    import signal
+
+    from gamesmanmpi_tpu_torch.db import DbFormatError
+    from gamesmanmpi_tpu_torch.serve import (
+        ServeSupervisor,
+        load_fleet_manifest,
+        single_db_entries,
+    )
+
+    if args.fleet_manifest and args.db:
+        return _error("pass a DB directory or --fleet-manifest, not both")
+    device, rc = _device(args.device, fork_safe=True)
+    if device is None:
+        return rc
+    logger = _build_logger(args)
+    with _logger_scope(logger):
+        try:
+            entries = (load_fleet_manifest(args.fleet_manifest)
+                       if args.fleet_manifest
+                       else single_db_entries(args.db))
+            supervisor = ServeSupervisor(
+                entries, workers=workers, host=args.host, port=args.port,
+                control_port=args.control_port,
+                manifest_path=args.fleet_manifest,
+                server_config={
+                    "window": args.batch_window_ms / 1e3,
+                    "cache_size": args.cache_size,
+                    "max_queue": args.max_queue,
+                    "request_timeout": (
+                        args.request_timeout_ms / 1e3
+                        if args.request_timeout_ms is not None else None),
+                },
+                jsonl=args.jsonl, logger=logger, device=args.device)
+        except (ValueError, DbFormatError) as e:
+            return _error(str(e))
+        except OSError as e:  # port in use / unbindable host
+            return _error(f"cannot bind {args.host}:{args.port} ({e})")
+        games = ", ".join(e.name or "default" for e in entries)
+        print(f"serving fleet [{games}] on "
+              f"http://{args.host}:{supervisor.port} with {workers} "
+              f"worker(s) (control http://{args.host}:"
+              f"{supervisor.control_port} — GET /healthz, GET /metrics, "
+              "GET /traces, POST /reload)", flush=True)
+        previous = {}
+        for sig, handler in (
+                (signal.SIGINT, lambda *_: supervisor.request_stop()),
+                (signal.SIGTERM, lambda *_: supervisor.request_stop()),
+                (signal.SIGHUP, lambda *_: supervisor.request_reload())):
+            try:
+                previous[sig] = signal.signal(sig, handler)
+            except ValueError:  # not the main thread (programmatic use)
+                pass
+        try:
+            return supervisor.run()
+        finally:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
 
 
 def main(argv=None) -> int:

@@ -19,15 +19,27 @@ cross the boundary once each way: queries in the game's reference dtype
 go up as the int64 carrier, canonical states come back in the reference
 dtype for the probe (core/bitops.to_reference).
 
-Not ported (ROADMAP): the metrics-registry series and query spans, the
-cross-worker shared-memory tier and the DB epoch (serving), the private
-per-reader cache (``GAMESMAN_DB_CACHE_MB``), and GameSpec databases
-(``game_spec`` in the manifest: the game compiler is not ported).
+``device=None`` opens a reader with no device at all: it validates the
+DB and holds its manifest, and refuses to answer. The serving
+supervisor opens its parent-side readers so, which keeps the parent
+from touching the CUDA driver before it forks its workers; each worker
+opens its own reader on its device after the fork.
+
+Serving rides the reader as in the reference: the DB ``epoch`` (the
+manifest's sha256), the probe/page-touch/cache/decode series on the
+registry it is given, query spans (obs/qtrace.qspan), the cross-worker
+shared-memory tier (``shm=``, store/shm.py) under the block store, and
+the private per-reader store that ``GAMESMAN_DB_CACHE_MB`` carves.
+
+Not ported: GameSpec databases (``game_spec`` in the manifest: the game
+compiler is not ported).
 """
 
 from __future__ import annotations
 
+import math
 import pathlib
+import time
 
 import numpy as np
 import torch
@@ -37,30 +49,59 @@ from gamesmanmpi_tpu_torch.core.bitops import SENTINEL, to_reference
 from gamesmanmpi_tpu_torch.core.codec import unpack_cells_np
 from gamesmanmpi_tpu_torch.core.values import LOSE, TIE, UNDECIDED, WIN
 from gamesmanmpi_tpu_torch.db.format import (
+    MANIFEST_NAME,
     DbFormatError,
+    file_sha256,
     level_is_blocked,
     probe_sorted_np,
     read_manifest,
 )
+from gamesmanmpi_tpu_torch.obs import default_registry
+from gamesmanmpi_tpu_torch.obs.qtrace import qspan
 from gamesmanmpi_tpu_torch.resilience import faults
 from gamesmanmpi_tpu_torch.solve.engine import undecided_mask
 from gamesmanmpi_tpu_torch.store import (
+    BlockStore,
     SealedBlockStream,
+    TieredCache,
     default_store,
     open_npy_mmap,
 )
 from gamesmanmpi_tpu_torch.utils.device import resolve_device
-from gamesmanmpi_tpu_torch.utils.env import env_bool
+from gamesmanmpi_tpu_torch.utils.env import env_bool, env_int, env_opt
 
 
 class DbReader:
     """Read-only handle on a finalized solved-position database."""
 
     def __init__(self, directory, game=None, *, verify: bool = False,
-                 device="cuda"):
+                 device="cuda", registry=None, shm=None):
         self.dir = pathlib.Path(directory)
-        self.device = resolve_device(device)
+        self.device = None if device is None else resolve_device(device)
         self.manifest = read_manifest(self.dir)
+        #: DB epoch — the manifest sha. The invalidation token of every
+        #: fast path layered over this reader: shared-memory block slots
+        #: are stamped with it, the server's ETag embeds it, and the
+        #: opening book implicitly carries it (building a book rewrites
+        #: the manifest). A reload that changes the DB changes the
+        #: epoch, and everything stale becomes a miss.
+        self.epoch = file_sha256(self.dir / MANIFEST_NAME)
+        reg = registry or default_registry()
+        self._m_probe_secs = reg.histogram(
+            "gamesman_db_probe_seconds",
+            "wall seconds per batched level probe (searchsorted + "
+            "cell gather)",
+        )
+        self._m_probe_queries = reg.counter(
+            "gamesman_db_probe_queries_total", "positions probed"
+        )
+        self._m_page_touches = reg.counter(
+            "gamesman_db_mmap_page_touches_total",
+            "estimated mmap pages touched: ceil(log2(level keys)) per "
+            "binary-search query plus one cells page per hit — the "
+            "working-set denominator that says whether a level is being "
+            "served from page cache or disk",
+        )
         if game is None and self.manifest.get("game_spec") is not None:
             raise DbFormatError(
                 f"{self.dir}: a GameSpec database (manifest game_spec) — "
@@ -92,7 +133,11 @@ class DbReader:
         }
         self._arrays: dict = {}
         self._blocked: dict = {}
+        self._shm = shm  # cross-worker decoded-block tier (store/shm.py)
         self._store = None
+        self._private_store = False
+        self._m_decode_secs = None
+        self._m_cache_hits = self._m_cache_misses = None
         self._hits = 0  # guarded-by: _stats_lock
         self._misses = 0  # guarded-by: _stats_lock
         self._stats_lock = None
@@ -101,8 +146,41 @@ class DbReader:
 
             # Decompress-on-probe (format v2): decoded blocks live in the
             # shared block-store cache (one byte budget per process).
-            self._store = default_store()
+            # GAMESMAN_DB_CACHE_MB, when set explicitly, carves a private
+            # store for this reader, labeled so two private caches on one
+            # registry keep separable series.
+            if env_opt("GAMESMAN_DB_CACHE_MB"):
+                self._store = BlockStore(
+                    cache=TieredCache(
+                        max(1, env_int("GAMESMAN_DB_CACHE_MB", 64)) << 20,
+                        registry=reg, labels={"db": self.dir.name},
+                    ),
+                    prefetch_threads=0, writebehind=False, registry=reg,
+                    labels={"db": self.dir.name},
+                )
+                self._private_store = True
+            else:
+                self._store = default_store()
             self._stats_lock = threading.Lock()
+            # Per-reader hit/miss series: the db label separates routes
+            # within one worker, the worker label separates workers
+            # (docs/OBSERVABILITY.md).
+            self._m_cache_hits = reg.counter(
+                "gamesman_db_cache_hits_total",
+                "probes answered from an already-decoded hot block",
+                db=self.dir.name,
+            )
+            self._m_cache_misses = reg.counter(
+                "gamesman_db_cache_misses_total",
+                "probes that had to decode a cold block",
+                db=self.dir.name,
+            )
+            self._m_decode_secs = reg.histogram(
+                "gamesman_db_block_decode_seconds",
+                "wall seconds decoding one cold (keys, cells) block pair "
+                "on the probe path (cache misses only)",
+                db=self.dir.name,
+            )
         # The resident opening book (db/book.py) rides the reader, so
         # every consumer gets the short path when the manifest seals one.
         # Loading re-hashes the seal; a corrupt book refuses the reader
@@ -169,9 +247,11 @@ class DbReader:
         return bl
 
     def cache_stats(self):
-        """Hot-block cache counters (dict), or None for a v1 DB. hits and
+        """Hot-block cache counters (dict), or None for a v1 DB (the
+        serving batcher rides these on its serve_batch records). hits and
         misses are THIS reader's probes; bytes/blocks/evictions are the
-        shared store cache's."""
+        backing store cache's (shared across readers unless
+        GAMESMAN_DB_CACHE_MB carved a private one)."""
         if self._store is None:
             return None
         backing = self._store.cache.stats()
@@ -186,13 +266,15 @@ class DbReader:
         }
 
     def close(self) -> None:
-        """Drop the mmaps, close block-stream fds. The shared store keeps
-        its decoded blocks — they are keyed by stream inode, so they can
-        never leak into another DB."""
+        """Drop the mmaps, close block-stream fds. A private store's cache
+        is cleared; the shared store keeps its decoded blocks — they are
+        keyed by stream inode, so they can never leak into another DB."""
         self._arrays.clear()
         for bl in self._blocked.values():
             bl.close()
         self._blocked.clear()
+        if self._private_store and self._store is not None:
+            self._store.close()
 
     def __enter__(self):
         return self
@@ -206,6 +288,13 @@ class DbReader:
             np.asarray(queries, dtype=self.game.state_dtype)
         )
 
+    def _on_device(self, states: np.ndarray) -> torch.Tensor:
+        """int64 carrier of `states` on the reader's device."""
+        if self.device is None:
+            raise ValueError(f"{self.dir}: this reader was opened without "
+                             "a device (device=None) and cannot answer")
+        return torch.from_numpy(states.astype(np.int64)).to(self.device)
+
     def _canon_levels(self, q: np.ndarray):
         """Batched canonicalize + level_of on the reader's device:
         [K] reference-dtype states -> (canon [K] in the reference dtype,
@@ -215,10 +304,11 @@ class DbReader:
         never probed."""
         ok = (q < np.uint64(SENTINEL) if q.dtype == np.uint64
               else np.ones(q.shape, dtype=bool))
-        states = torch.from_numpy(np.where(ok, q, 0).astype(np.int64))
-        canon = self.game.canonicalize(states.to(self.device))
-        levels = self.game.level_of(canon).cpu().numpy()
-        canon = to_reference(canon, self.game)
+        with qspan("canonicalize", queries=int(q.shape[0])):
+            states = self._on_device(np.where(ok, q, 0))
+            canon = self.game.canonicalize(states)
+            levels = self.game.level_of(canon).cpu().numpy()
+            canon = to_reference(canon, self.game)
         canon[~ok] = self.game.sentinel
         return canon, levels
 
@@ -232,7 +322,7 @@ class DbReader:
         no children; unused lanes hold the sentinel and level 0. `q`
         must hold real states only (the callers pass found positions)."""
         g = self.game
-        states = torch.from_numpy(q.astype(np.int64)).to(self.device)
+        states = self._on_device(q)
         children, mask = g.expand(states)
         mask = mask & undecided_mask(g, states).unsqueeze(-1)
         sent = torch.tensor(SENTINEL, dtype=torch.int64, device=self.device)
@@ -271,10 +361,12 @@ class DbReader:
         once and reuses it for both the probe and the expansion)."""
         k = canon.shape[0]
         faults.fire("db.probe", queries=k)
+        t0 = time.perf_counter()
         values = np.full(k, UNDECIDED, dtype=np.uint8)
         remoteness = np.zeros(k, dtype=np.int32)
         found = np.zeros(k, dtype=bool)
         real = canon != self.game.sentinel
+        pages = 0
         for lv in np.unique(levels[real]):
             rec = self._levels.get(int(lv))
             if rec is None:
@@ -286,13 +378,25 @@ class DbReader:
                 )
                 continue
             keys, cells = self._level_arrays(int(lv))
-            idx, hit = probe_sorted_np(keys, canon[sel])
+            with qspan("searchsorted", level=int(lv),
+                       queries=int(sel.size)):
+                idx, hit = probe_sorted_np(keys, canon[sel])
             hsel = sel[hit]
             if hsel.size:
                 v, r = unpack_cells_np(np.asarray(cells[idx[hit]]))
                 values[hsel] = v
                 remoteness[hsel] = r
                 found[hsel] = True
+            # Page-touch model, not a kernel counter: each binary search
+            # descends ~log2(n) key pages (upper levels share pages and
+            # stay cached, so this is a ceiling), each hit reads one
+            # cells page.
+            pages += sel.size * max(
+                1, math.ceil(math.log2(max(int(keys.shape[0]), 2)))
+            ) + int(hsel.size)
+        self._m_probe_queries.inc(k)
+        self._m_page_touches.inc(pages)
+        self._m_probe_secs.observe(time.perf_counter() - t0)
         return values, remoteness, found
 
     def _probe_blocked_level(self, lv: int, canon, sel, values,
@@ -309,32 +413,59 @@ class DbReader:
         # side="right" - 1: the block whose first key is <= q. Queries
         # below the level's first key clip to block 0, where the
         # equality confirm rejects them.
-        bids = np.searchsorted(
-            bl.first_keys, q.astype(np.uint64, copy=False), side="right",
-        ) - 1
-        np.clip(bids, 0, bl.num_blocks - 1, out=bids)
+        with qspan("searchsorted", level=int(lv), queries=int(sel.size)):
+            bids = np.searchsorted(
+                bl.first_keys, q.astype(np.uint64, copy=False),
+                side="right",
+            ) - 1
+            np.clip(bids, 0, bl.num_blocks - 1, out=bids)
         for b in np.unique(bids):
             # Shared-store read keyed by the stream's inode identity
             # (SealedBlockStream.ident): every reader of one DB shares one
             # decoded copy, and an overwrite-swapped DB can never serve
             # the old directory's blocks.
             def _decode(bl=bl, b=int(b), lv=lv):
+                t0 = time.perf_counter()
                 try:
-                    faults.fire("serve.block_decode", level=int(lv),
-                                block=int(b))
-                    return bl.read_block(b)
+                    with qspan("block_decode", level=int(lv),
+                               block=int(b)):
+                        # The fault fires inside the span: an injected
+                        # delay here is the slow-decode shape, and the
+                        # trace must attribute it to decode.
+                        faults.fire("serve.block_decode",
+                                    level=int(lv), block=int(b))
+                        pair = bl.read_block(b)
                 except (BlockCorruptError, OSError) as e:
                     raise DbFormatError(
                         f"{self.dir}: level {lv} block {b} "
                         f"unreadable: {e}"
                     ) from e
+                self._m_decode_secs.observe(time.perf_counter() - t0)
+                return pair
 
-            pair, hit = self._store.read_ex((bl.ident, int(b)), _decode)
+            loader = _decode
+            if self._shm is not None:
+                # The cross-worker tier sits under the private store:
+                # private miss -> shm probe (a sibling worker's decode,
+                # one memcpy) -> real read+decode, which is then
+                # published for the rest of the fleet. Epoch-stamped: a
+                # reloaded DB's slots read as misses, never as wrong
+                # blocks (store/shm.py).
+                def loader(bl=bl, b=int(b), decode=_decode):
+                    key = (bl.ident[0], bl.ident[1], int(b))
+                    pair = self._shm.get(key, self.epoch)
+                    if pair is None:
+                        pair = decode()
+                        self._shm.put(key, self.epoch, pair[0], pair[1])
+                    return pair
+
+            pair, hit = self._store.read_ex((bl.ident, int(b)), loader)
             with self._stats_lock:
                 if hit:
                     self._hits += 1
                 else:
                     self._misses += 1
+            (self._m_cache_hits if hit else self._m_cache_misses).inc()
             bkeys, bcells = pair
             bsel = sel[bids == b]
             idx, hit = probe_sorted_np(

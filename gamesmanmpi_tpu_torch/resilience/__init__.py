@@ -1,3 +1,3 @@
-"""Fault injection and preemption grace (port of the
-gamesmanmpi_tpu/resilience/ modules the checkpointed solve uses:
-``faults`` and ``preempt``). Stdlib only."""
+"""Fault injection, level-step retry and preemption grace (port of the
+gamesmanmpi_tpu/resilience/ modules the solve and serving paths use:
+``faults``, ``retry`` and ``preempt``). Stdlib only."""

@@ -2,9 +2,10 @@
 gamesmanmpi_tpu/resilience/faults.py).
 
 Named fault points sit on the solve's host-side level paths (engine level
-steps, checkpoint seals and loads), the block store's write-behind and
-the DB reader's probe, and are armed
-from one environment variable, so every failure the checkpoint claims to
+steps, checkpoint seals and loads), the block store's write-behind, the
+DB reader's probe and the serving fleet (batcher flush, worker spawn and
+heartbeat, supervisor reload), and are armed from one environment
+variable, so every failure the checkpoint claims to
 survive can be injected on demand: in-process by tests, or into a
 subprocess for kill + resume + identical-tables chaos.
 
@@ -26,8 +27,9 @@ Grammar (``GAMESMAN_FAULTS``, comma-separated directives)::
 
 The table is read from the environment at the first visit of any point
 (or set by :func:`configure`); a disarmed process pays one falsy check
-per visit. The reference's registry counter and flight-recorder event
-belong to the observability layer, not ported yet.
+per visit. Every injection counts into
+``gamesman_faults_injected_total{point,kind}``; the reference's
+flight-recorder event waits for the flight recorder.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import random
 import sys
 import time
 
+from gamesmanmpi_tpu_torch.obs import default_registry
 from gamesmanmpi_tpu_torch.utils.env import env_opt
 
 
@@ -72,6 +75,13 @@ PORTED_POINTS = {
     "db.probe": "DB reader: top of each batched level probe",
     "serve.block_decode": "DB reader: before a cold v2 block's read and "
                           "decode",
+    "serve.flush": "Batcher worker: before the coalesced reader probe",
+    "serve.worker_spawn": "fleet worker: at process start, before the "
+                          "warm-start verify/self-probe gate",
+    "serve.heartbeat": "fleet worker: each heartbeat-pipe beat (a delay "
+                       "here is a liveness stall the supervisor kills)",
+    "serve.reload": "supervisor: at the top of a rolling manifest "
+                    "reload, before any worker is drained",
 }
 
 #: Every point of the reference (gamesmanmpi_tpu/resilience/faults.py
@@ -79,9 +89,8 @@ PORTED_POINTS = {
 #: does not have yet.
 KNOWN_POINTS = dict(PORTED_POINTS, **{p: "not yet ported" for p in (
     "sharded.forward", "sharded.backward", "sharded.collective",
-    "coord.barrier", "coord.handshake", "serve.flush",
-    "serve.worker_spawn", "serve.heartbeat", "serve.reload",
-    "registry.fetch", "registry.publish", "registry.install", "jobs.claim",
+    "coord.barrier", "coord.handshake", "registry.fetch",
+    "registry.publish", "registry.install", "jobs.claim",
 )})
 
 KINDS = ("transient", "fatal", "delay", "kill", "torn", "enospc", "oom")
@@ -182,6 +191,10 @@ def _inject(d: _Directive, point: str, path, ctx: dict) -> None:
     where = f"{point} (visit {d.visits}{', ' + repr(ctx) if ctx else ''})"
     sys.stderr.write(f"[faults] injecting {d.kind} at {where}\n")
     sys.stderr.flush()
+    default_registry().counter(
+        "gamesman_faults_injected_total", "injected faults fired",
+        point=point, kind=d.kind,
+    ).inc()
     if d.kind == "transient":
         raise TransientFault(f"injected transient fault at {where}")
     if d.kind == "fatal":

@@ -35,10 +35,19 @@ resolving it, recomputes a quarantined one, and seals each level it
 resolves. Preemption checks (resilience/preempt.py) and fault points
 (resilience/faults.py) sit at the reference's level boundaries.
 
+Level-step retry (resilience/retry.py), as in the reference's
+``Solver._retry``: each forward expand+dedup and each backward resolve
+runs under a bounded exponential-backoff retry that absorbs transient
+runtime errors. A re-attempt starts again from the step's held inputs
+(the level's frontier on the device, or its host pool, and the solved
+window), so it is idempotent; ``stats["retries"]`` counts the absorbed
+failures and ``gamesman_retries_total{point=...}`` carries them per
+point.
+
 What the port leaves out of the reference's machinery: background
 precompiles and power-of-two capacity buckets (they bound XLA's compiled
 shapes; eager torch runs every level at its exact size), speculation,
-heartbeat, status server, retries, memory guard and the fused/pingpong
+heartbeat, status server, memory guard and the fused/pingpong
 modes.
 
 Host synchronisation: one per forward level, inside ``torch.unique``
@@ -68,6 +77,7 @@ from gamesmanmpi_tpu_torch.ops.dedup import unique_tailed, with_sentinel_slot
 from gamesmanmpi_tpu_torch.ops.lookup import lookup_window
 from gamesmanmpi_tpu_torch.ops.provenance import gather_cells, uidx_from_inverse
 from gamesmanmpi_tpu_torch.resilience import faults, preempt
+from gamesmanmpi_tpu_torch.resilience.retry import retry_call
 from gamesmanmpi_tpu_torch.store import TORN_SEAL_ERRORS as TORN_NPZ_ERRORS
 from gamesmanmpi_tpu_torch.utils.device import resolve_device
 from gamesmanmpi_tpu_torch.utils.env import env_bool, env_int
@@ -286,9 +296,21 @@ class Solver:
         self.backward_block = _backward_block()
         self.device_store_bytes = env_int("GAMESMAN_DEVICE_STORE_MB", 8192) << 20
         self.provenance_levels = 0
+        #: transient level-step failures absorbed by _retry.
+        self.retries = 0
         self._completed: set = set()  # levels sealed in the checkpoint
 
     # ------------------------------------------------------------ helpers
+
+    def _retry(self, point: str, fn, level=None):
+        """Level-step retry: bounded exponential backoff on transient
+        runtime errors (resilience/retry.py). ``fn`` re-enters from the
+        step's held inputs, so every attempt computes the same level."""
+
+        def on_retry(attempt, exc):
+            self.retries += 1
+
+        return retry_call(fn, point=point, level=level, on_retry=on_retry)
 
     def _misses_check(self, k: int, misses) -> None:
         if self.paranoid and int(misses) > 0:
@@ -407,19 +429,24 @@ class Solver:
         while True:
             # Level boundary: everything before this level is sealed.
             preempt.check("forward", level=k)
-            faults.fire("engine.forward", level=k)
-            faults.fire("engine.dedup", level=k)
             rec = levels[k]
             states = rec.dev if rec.dev is not None else frontier
-            if self.use_provenance:
-                uniq, n, uidx, prim = expand_provenance(g, states)
+
+            def _step(states=states, k=k):
+                faults.fire("engine.forward", level=k)
+                faults.fire("engine.dedup", level=k)
+                if self.use_provenance:
+                    return expand_provenance(g, states)
+                return (*expand_unique(g, states), None, None)
+
+            uniq, n, uidx, prim = self._retry("engine.forward", _step,
+                                              level=k)
+            if uidx is not None:
                 extra = prim.numel() + uidx.numel() * 4
                 if n > 0 and stored + extra <= self.device_store_bytes:
                     rec.prim, rec.uidx = prim, uidx
                     stored += extra
                     self.provenance_levels += 1
-            else:
-                uniq, n = expand_unique(g, states)
             if n == 0:
                 break
             self._check_level(k + 1)
@@ -453,13 +480,16 @@ class Solver:
                 values = torch.from_numpy(table.values).to(dev)
                 rem = torch.from_numpy(table.remoteness).to(dev)
             else:
-                faults.fire("engine.backward", level=k)
-                if prev is not None and rec.uidx is not None:
-                    values, rem, miss = self._resolve_blocked_prov(
-                        rec, prev[1], prev[2])
-                else:
+                def _resolve(rec=rec, states=states, prev=prev, k=k):
+                    faults.fire("engine.backward", level=k)
+                    if prev is not None and rec.uidx is not None:
+                        return self._resolve_blocked_prov(rec, prev[1],
+                                                          prev[2])
                     window = [prev] if prev is not None else []
-                    values, rem, miss = self._resolve_blocked(states, window)
+                    return self._resolve_blocked(states, window)
+
+                values, rem, miss = self._retry("engine.backward", _resolve,
+                                                level=k)
                 misses.append(miss)
                 self._misses_check(k, miss)
             prev = (states, values, rem)
@@ -482,12 +512,15 @@ class Solver:
                 k += 1
                 continue
             preempt.check("forward", level=k)
-            faults.fire("engine.forward", level=k)
-            faults.fire("engine.dedup", level=k)
-            frontier = torch.from_numpy(pools[k]).to(dev)
-            uniq, kid_levels = expand_with_levels(g, frontier)
-            kids = uniq.cpu().numpy()
-            kid_levels = kid_levels.cpu().numpy()
+
+            def _step(k=k):
+                faults.fire("engine.forward", level=k)
+                faults.fire("engine.dedup", level=k)
+                frontier = torch.from_numpy(pools[k]).to(dev)
+                uniq, kid_levels = expand_with_levels(g, frontier)
+                return uniq.cpu().numpy(), kid_levels.cpu().numpy()
+
+            kids, kid_levels = self._retry("engine.forward", _step, level=k)
             for lv in np.unique(kid_levels):
                 lv = int(lv)
                 self._check_level(lv)
@@ -509,10 +542,15 @@ class Solver:
                 values = torch.from_numpy(table.values).to(dev)
                 rem = torch.from_numpy(table.remoteness).to(dev)
             else:
-                faults.fire("engine.backward", level=k)
                 window = [cache[k + j] for j in range(1, g.max_level_jump + 1)
                           if k + j in cache]
-                values, rem, miss = self._resolve_blocked(states, window)
+
+                def _resolve(states=states, window=window, k=k):
+                    faults.fire("engine.backward", level=k)
+                    return self._resolve_blocked(states, window)
+
+                values, rem, miss = self._retry("engine.backward", _resolve,
+                                                level=k)
                 misses.append(miss)
                 self._misses_check(k, miss)
             self._finish_level(k, root, table, lambda k=k: pools[k], values,
@@ -591,6 +629,7 @@ class Solver:
             "use_provenance": bool(self.fast and self.use_provenance),
             "provenance_levels": self.provenance_levels,
             "misses": total_misses,
+            "retries": self.retries,
             # Device memory is a card metric: None for a CPU solve.
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(self.device)
                                if cuda else None),

@@ -4,7 +4,8 @@ Sealed crc-verified reads (:mod:`store.sealed`), a byte-budget host-RAM
 tier (:class:`TieredCache`) and the prefetch and write-behind engine
 (:class:`BlockStore`). Its consumers are the checkpointer
 (utils/checkpoint.py) and the DB (db/writer.py, db/reader.py).
-``store/shm.py`` comes with serving, not ported yet.
+:class:`ShmBlockCache` (store/shm.py) is the serving fleet's
+cross-worker decoded-block tier.
 """
 
 from gamesmanmpi_tpu_torch.store.blockstore import (  # noqa: F401
@@ -14,6 +15,7 @@ from gamesmanmpi_tpu_torch.store.blockstore import (  # noqa: F401
     file_key,
 )
 from gamesmanmpi_tpu_torch.store.cache import TieredCache  # noqa: F401
+from gamesmanmpi_tpu_torch.store.shm import ShmBlockCache  # noqa: F401
 from gamesmanmpi_tpu_torch.store.sealed import (  # noqa: F401
     BLOCKS_META_MEMBER,
     BlockedNpzView,

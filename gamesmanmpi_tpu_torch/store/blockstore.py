@@ -22,9 +22,11 @@ Checkpoint seals write inline on the solve thread, as before.
 
 Accounting: ``io_wait_secs`` sums every second the calling thread spent
 blocked on store I/O (synchronous loads, waits on in-flight prefetches,
-drains, inline writes). The reference's metric-registry series, query
-spans and flight-recorder events belong to the observability layer,
-not ported yet; the counters are read through :meth:`BlockStore.stats`.
+drains, inline writes). The counters are read through
+:meth:`BlockStore.stats` and land in the ``gamesman_store_*`` registry
+series (docs/OBSERVABILITY.md); a read under an active query trace
+records a ``store_read`` span (obs/qtrace.py). The reference's
+flight-recorder events wait for the flight recorder.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import os
 import threading
 import time
 
+from gamesmanmpi_tpu_torch.obs import default_registry
+from gamesmanmpi_tpu_torch.obs.qtrace import qspan
 from gamesmanmpi_tpu_torch.resilience import faults
 from gamesmanmpi_tpu_torch.store.cache import TieredCache
 from gamesmanmpi_tpu_torch.utils.env import env_bool, env_int
@@ -106,9 +110,16 @@ class BlockStore:
 
     def __init__(self, *, cache: TieredCache | None = None,
                  prefetch_threads: int = _DEFAULT_PREFETCH_THREADS,
-                 writebehind: bool = True):
+                 writebehind: bool = True, registry=None, labels=None):
+        """labels: metric labels for THIS store's gamesman_store_*
+        series. The process default store emits unlabeled; a private
+        store (DbReader's GAMESMAN_DB_CACHE_MB budget) passes
+        ``db=<name>`` so its counts never fold into the shared store's
+        series."""
+        reg = registry if registry is not None else default_registry()
+        lbl = dict(labels or {})
         self.cache = cache if cache is not None else TieredCache(
-            _DEFAULT_CACHE_MB << 20)
+            _DEFAULT_CACHE_MB << 20, registry=reg)
         self.prefetch_threads = max(0, int(prefetch_threads))
         self.writebehind = bool(writebehind)
         self._lock = threading.Lock()
@@ -132,6 +143,32 @@ class BlockStore:
         self._wb_thread = None
         self._wb_writes = 0  # guarded-by: _lock
         self._wb_depth_peak = 0  # guarded-by: _lock
+        self._m_io_wait = reg.counter(
+            "gamesman_store_io_wait_seconds_total",
+            "seconds calling threads spent blocked on store I/O "
+            "(sync loads, prefetch waits, drains, inline writes)",
+            **lbl,
+        )
+        self._m_pf_hits = reg.counter(
+            "gamesman_store_prefetch_hits_total",
+            "store reads satisfied by the cache or an in-flight prefetch",
+            **lbl,
+        )
+        self._m_pf_misses = reg.counter(
+            "gamesman_store_prefetch_misses_total",
+            "store reads that fell back to a synchronous sealed load",
+            **lbl,
+        )
+        self._m_wb_depth = reg.gauge(
+            "gamesman_store_writebehind_queue_depth",
+            "payload writes parked behind the write-behind worker now",
+            **lbl,
+        )
+        self._m_wb_writes = reg.counter(
+            "gamesman_store_writebehind_writes_total",
+            "payload writes executed by the write-behind worker",
+            **lbl,
+        )
 
     # -------------------------------------------------------------- reads
 
@@ -143,7 +180,16 @@ class BlockStore:
         """-> (value, hit). A cache hit or a wait on an in-flight prefetch
         is a hit; a synchronous load is a miss. ``key=None`` bypasses the
         cache (an unstat-able file, see file_key). ``nbytes`` sizes the
-        cache entry; None derives it from the value's ``.nbytes``."""
+        cache entry; None derives it from the value's ``.nbytes``.
+
+        Under an active query trace (the serving path, obs/qtrace.py) the
+        read records a ``store_read`` span carrying which path answered:
+        ``hit`` (cache), ``wait`` (in-flight prefetch) or ``sync`` (the
+        loader ran on this thread)."""
+        with qspan("store_read") as sp:
+            return self._read_ex_traced(key, loader, nbytes, sp)
+
+    def _read_ex_traced(self, key, loader, nbytes, sp):
         if key is not None:
             with self._lock:
                 self._reads += 1
@@ -152,6 +198,9 @@ class BlockStore:
             if value is not None:
                 with self._lock:
                     self._prefetch_hits += 1
+                self._m_pf_hits.inc()
+                if sp is not None:
+                    sp["path"] = "hit"
                 return value, True
             with self._lock:
                 entry = self._inflight.get(key)
@@ -168,12 +217,19 @@ class BlockStore:
                     # Background corruption re-raises HERE, on the
                     # consuming thread; the worker already dropped the
                     # entry, so a retry reloads fresh.
+                    self._m_pf_misses.inc()
                     raise entry.error
+                self._m_pf_hits.inc()
+                if sp is not None:
+                    sp["path"] = "wait"
                 return entry.value, True
         with self._lock:
             if key is None:
                 self._reads += 1
             self._prefetch_misses += 1
+        self._m_pf_misses.inc()
+        if sp is not None:
+            sp["path"] = "sync"
         t0 = time.perf_counter()
         try:
             value = loader()
@@ -257,6 +313,7 @@ class BlockStore:
         point's torn-write target."""
         ticket = WriteTicket(path)
         if self.writebehind:
+            enqueued = False
             with self._wb_cond:
                 if not self._closed:
                     self._wb_queue.append((ticket, fn))
@@ -269,7 +326,11 @@ class BlockStore:
                         )
                         self._wb_thread.start()
                     self._wb_cond.notify()
-                    return ticket
+                    enqueued = True
+            if enqueued:
+                # Outside the lock: registry children take their own.
+                self._m_wb_depth.set(depth)
+                return ticket
         self._run_write(ticket, fn)
         return ticket
 
@@ -305,6 +366,8 @@ class BlockStore:
                     return  # closed and drained
                 ticket, fn = self._wb_queue.popleft()
                 self._wb_busy = True
+                depth = len(self._wb_queue) + 1
+            self._m_wb_depth.set(depth)
             try:
                 value = fn()
                 # After the payload lands, before any seal can run (seals
@@ -317,11 +380,16 @@ class BlockStore:
                     self._wb_writes += 1
                     if self._wb_failed is None:
                         self._wb_failed = ticket
+                self._m_wb_writes.inc()
                 ticket._resolve(error=e)
+                self._m_wb_depth.set(len(self._wb_queue))
                 continue
             with self._lock:
                 self._wb_writes += 1
+            self._m_wb_writes.inc()
             ticket._resolve(value)
+            # The honest remaining depth, the idle case included.
+            self._m_wb_depth.set(len(self._wb_queue))
 
     def drain(self) -> None:
         """Wait for the write-behind queue; re-raise the first queued
@@ -345,6 +413,7 @@ class BlockStore:
     def _note_wait(self, secs: float) -> None:
         with self._lock:
             self._io_wait_secs += secs
+        self._m_io_wait.inc(max(0.0, secs))
 
     def stats(self) -> dict:
         """Point-in-time counters (solvers report per-solve deltas)."""
@@ -400,9 +469,11 @@ def default_store() -> BlockStore:
             return _DEFAULT[1]
         old = _DEFAULT[1] if _DEFAULT is not None else None
         store = BlockStore(
-            cache=TieredCache(max(1, knobs[0]) << 20),
+            cache=TieredCache(max(1, knobs[0]) << 20,
+                              registry=default_registry()),
             prefetch_threads=knobs[1],
             writebehind=knobs[2],
+            registry=default_registry(),
         )
         _DEFAULT = (knobs, store)
     if old is not None:

@@ -15,10 +15,20 @@ class DeviceUnavailable(RuntimeError):
     """The requested device does not exist on this machine."""
 
 
-def resolve_device(device="cuda") -> torch.device:
-    """torch.device for `device`, checked to exist."""
+def resolve_device(device="cuda", *, fork_safe: bool = False
+                   ) -> torch.device:
+    """torch.device for `device`, checked to exist.
+
+    ``fork_safe=True`` checks for the card through NVML
+    (``torch.cuda.device_count()`` before CUDA is initialized), which
+    leaves the CUDA driver untouched: a process that checked so can still
+    fork children that use the card (the serving supervisor).
+    ``torch.cuda.is_available()`` initializes the driver, and a child
+    forked after it fails at its first CUDA call."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    present = ((lambda: torch.cuda.device_count() > 0) if fork_safe
+               else torch.cuda.is_available)
+    if dev.type == "cuda" and not present():
         raise DeviceUnavailable(
             "a CUDA device was requested but torch.cuda.is_available() is "
             "false; pass device='cpu' (CLI: --device cpu) to run on the CPU"

@@ -87,6 +87,10 @@ def test_import_and_cpu_solve_leave_jax_out():
         " '--device', 'cpu']) == 0\n"
         "import gamesmanmpi_tpu_torch.db.check, gamesmanmpi_tpu_torch.db.book\n"
         "import gamesmanmpi_tpu_torch.compat, gamesmanmpi_tpu_torch.solve.oracle\n"
+        "import gamesmanmpi_tpu_torch.serve, gamesmanmpi_tpu_torch.obs\n"
+        "import gamesmanmpi_tpu_torch.serve.worker\n"
+        "import gamesmanmpi_tpu_torch.resilience.retry\n"
+        "import gamesmanmpi_tpu_torch.utils.metrics\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'gamesmanmpi_tpu'))\n"

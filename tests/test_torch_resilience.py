@@ -3,6 +3,10 @@ integrity (the reference's tests/test_resilience.py, on the port).
 
 * The GAMESMAN_FAULTS grammar and every injected kind; a point the port
   does not fire yet refuses to arm.
+* Level-step retry: a transient at a forward or backward step is
+  absorbed, the tables equal the undisturbed solve's, and the retry
+  count equals the JAX package's on the same schedule; a fatal fault
+  fails fast, and torch's out-of-memory error is never retried.
 * A crc mismatch quarantines the level (or frontier) and the resume
   recomputes it; GAMESMAN_CKPT_VERIFY=0 skips the check.
 * Preemption: SIGUSR1 mid-backward raises PreemptionRequested at the
@@ -27,10 +31,16 @@ import time
 import numpy as np
 import pytest
 
+from gamesmanmpi_tpu import cli as jax_cli
+from gamesmanmpi_tpu.games import get_game as jax_get_game
 from gamesmanmpi_tpu.resilience import faults as ref_faults
+from gamesmanmpi_tpu.resilience import retry as ref_retry
+from gamesmanmpi_tpu.solve import Solver as JaxSolver
 from gamesmanmpi_tpu_torch import cli
+from gamesmanmpi_tpu_torch.obs import default_registry
 from gamesmanmpi_tpu_torch.games import get_game
 from gamesmanmpi_tpu_torch.resilience import faults, preempt
+from gamesmanmpi_tpu_torch.resilience import retry
 from gamesmanmpi_tpu_torch.resilience.faults import FatalFault, TransientFault
 from gamesmanmpi_tpu_torch.solve.engine import Solver
 from gamesmanmpi_tpu_torch.store import BlockStore, file_crc32
@@ -46,9 +56,11 @@ C34 = "connect4:w=3,h=4,connect=3"
 @pytest.fixture(autouse=True)
 def _disarmed():
     faults.clear()
+    ref_faults.clear()
     preempt.reset()
     yield
     faults.clear()
+    ref_faults.clear()
     preempt.reset()
 
 
@@ -115,7 +127,9 @@ def test_known_points_are_the_references():
     assert set(faults.PORTED_POINTS) == {
         "engine.forward", "engine.dedup", "engine.backward",
         "ckpt.save_level", "ckpt.load_level", "ckpt.save_frontier",
-        "store.writebehind", "db.probe", "serve.block_decode"}
+        "store.writebehind", "db.probe", "serve.block_decode",
+        "serve.flush", "serve.worker_spawn", "serve.heartbeat",
+        "serve.reload"}
     assert faults.KILL_EXIT_CODE == ref_faults.KILL_EXIT_CODE == 77
     assert faults.TORN_EXIT_CODE == ref_faults.TORN_EXIT_CODE == 86
     assert preempt.GRACE_EXIT_CODE == 75
@@ -132,7 +146,7 @@ def test_unported_point_refuses_to_arm(point, monkeypatch):
 
 
 def test_cli_refuses_a_bad_fault_spec(monkeypatch, capsys):
-    monkeypatch.setenv("GAMESMAN_FAULTS", "serve.flush:kill")
+    monkeypatch.setenv("GAMESMAN_FAULTS", "registry.fetch:kill")
     assert cli.main(["solve", "tictactoe", "--device", "cpu"]) == 2
     assert "not yet ported" in capsys.readouterr().err
 
@@ -182,6 +196,98 @@ def test_every_ported_point_fires_on_a_checkpointed_solve(point, tmp_path):
     faults.clear()
     r = resume("tictactoe", d)
     assert (r.value, r.remoteness, r.num_positions) == (3, 9, 5478)
+
+
+# ------------------------------------------------------ level-step retry
+
+
+def _retries_total():
+    fam = default_registry().snapshot().get("gamesman_retries_total", {})
+    return sum(row["value"] for row in fam.get("values", ()))
+
+
+@pytest.mark.parametrize("spec", [C34, "nim:heaps=3-4-5"])
+@pytest.mark.parametrize("fault", ["engine.forward:transient:2",
+                                   "engine.backward:transient:p0.5@7"])
+def test_transient_is_absorbed_with_the_references_retries(
+        spec, fault, clean, monkeypatch):
+    """The fast (C34) and generic (nim) paths absorb a one-shot forward
+    transient and a seeded coin-flip backward one; with eight attempts
+    per step neither package exhausts its retries, and both count the
+    same number of them on the same schedule."""
+    monkeypatch.setenv("GAMESMAN_RETRY_BASE_SECS", "0")
+    monkeypatch.setenv("GAMESMAN_RETRY_ATTEMPTS", "8")
+    ref_faults.configure(fault)
+    want = JaxSolver(jax_get_game(spec)).solve().stats["retries"]
+    faults.configure(fault)
+    before = _retries_total()
+    got = Solver(get_game(spec), device="cpu").solve()
+    assert got.stats["retries"] == want >= 1
+    assert _retries_total() - before == want
+    assert_same_tables(got, clean[spec])
+
+
+def test_exhausted_transients_fail_like_the_reference(monkeypatch):
+    """With the default three attempts the coin-flip schedule exhausts a
+    backward step in both packages: the last TransientFault surfaces."""
+    monkeypatch.setenv("GAMESMAN_RETRY_BASE_SECS", "0")
+    fault = "engine.backward:transient:p0.5@7"
+    ref_faults.configure(fault)
+    with pytest.raises(ref_faults.TransientFault):
+        JaxSolver(jax_get_game(C34)).solve()
+    faults.configure(fault)
+    with pytest.raises(TransientFault):
+        Solver(get_game(C34), device="cpu").solve()
+
+
+def test_fatal_fails_fast_without_retry(monkeypatch):
+    monkeypatch.setenv("GAMESMAN_RETRY_BASE_SECS", "0")
+    faults.configure("engine.backward:fatal:2")
+    solver = Solver(get_game(C34), device="cpu")
+    with pytest.raises(FatalFault):
+        solver.solve()
+    assert solver.retries == 0
+    assert faults._ARMED["engine.backward"][0].visits == 2  # no re-entry
+
+
+def test_out_of_memory_is_never_transient():
+    import torch
+
+    def cases(mod):
+        return [mod.TransientFault("x"), mod.FatalFault("x"),
+                MemoryError("oom"),
+                RuntimeError("UNAVAILABLE: socket closed"),
+                RuntimeError("RESOURCE_EXHAUSTED: out of memory"),
+                OSError("connection reset by peer"),
+                ValueError("unavailable")]
+
+    port = [retry.is_transient(c) for c in cases(faults)]
+    ref = [ref_retry.is_transient(c) for c in cases(ref_faults)]
+    assert port == ref == [True, False, False, True, False, True, False]
+    oom = torch.cuda.OutOfMemoryError(
+        "CUDA out of memory. Tried to allocate 2.00 GiB; the device is "
+        "unavailable for the rest of this step")
+    assert not retry.is_transient(oom)
+    assert retry.TRANSIENT_MARKERS == ref_retry.TRANSIENT_MARKERS
+
+
+def test_cli_absorbs_a_transient_like_the_jax_cli(monkeypatch, capsys):
+    monkeypatch.setenv("GAMESMAN_FAULTS", "engine.forward:transient:2")
+    monkeypatch.setenv("GAMESMAN_RETRY_BASE_SECS", "0")
+    ref_faults.configure("engine.forward:transient:2")  # the env, armed
+    outs = []
+    for main, argv in ((jax_cli.main, ["solve", "tictactoe"]),
+                       (cli.main, ["solve", "tictactoe", "--device", "cpu"])):
+        assert main(argv) == 0
+        out, err = capsys.readouterr()
+        outs.append(([ln for ln in out.splitlines()
+                      if ln.split(":")[0] in ("positions", "value",
+                                              "remoteness")],
+                     [ln for ln in err.splitlines()
+                      if ln.startswith("[faults]")]))
+    assert outs[1] == outs[0]
+    assert outs[1][0] == ["positions: 5478", "value: TIE", "remoteness: 9"]
+    assert len(outs[1][1]) == 1
 
 
 # ------------------------------------------------------- crc integrity
