@@ -90,6 +90,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              with --device cpu for the device comparison. Then v2 +
              book: a single process under 5 s of conditional GETs (304s,
              book hits) and a 2-worker fleet's shm counters.
+14. sharded 5x5 — the hash-partitioned sharded engine: (a) `solve
+             connect4:w=5,h=5 --devices 4` in-process with
+             GAMESMAN_FAKE_DEVICES=4 (4 shards share the card): 69,763,700
+             / TIE / 25 and every level's (states, values, remoteness)
+             identical to phase 9's; forward/backward seconds, positions/s,
+             peak memory, exchange bytes and seconds per direction, syncs
+             per level, backend. (b) connect4 5x4 with --devices 2 and 8,
+             with GAMESMAN_BACKWARD=lookup, and nim 3-4-5 and chomp 4x3 on
+             the generic path, each identical to the classic engine on the
+             card. (c) a 2-process world on the one card through
+             parallel/launch.py (`solve connect4:w=5,h=4 --devices 4
+             --table-out`, gloo moving CUDA tensors): both ranks exit 0,
+             their tables identical to each other and to (b)'s
+             one-process `--devices 4` table. (d) in that world, a
+             transient on rank 1 only is a retry on both ranks, with equal
+             counts and the same tables; rank 1 SIGKILLed in its third
+             backward step ends rank 0 with exit 124 (the coordinated
+             abort) within the barrier deadline.
 
 Then the script's seconds, the kernels line, the `nvidia-smi`
 name/power-limit line, and last
@@ -1419,6 +1437,186 @@ def serve_phase(result, tmp, v1, v2, extra=(), secs=10.0, get_secs=5.0):
          secs=time.perf_counter() - t0)
 
 
+@contextlib.contextmanager
+def env_set(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def sharded_fields(s):
+    return dict(secs_forward=s["secs_forward"],
+                secs_backward=s["secs_backward"],
+                positions_per_sec=s["positions_per_sec"],
+                peak_mem_bytes=s["peak_mem_bytes"],
+                exchange_bytes=s["exchange_bytes"],
+                exchange_secs=s["exchange_secs"],
+                exchange_calls=s["exchange_calls"], syncs=s["syncs"],
+                syncs_per_level=s["syncs_per_level"], levels=s["levels"],
+                backend=s["backend"], device=s["device"],
+                backward_edges_levels=s["backward_edges_levels"],
+                retries=s["retries"], misses=s["misses"])
+
+
+def world_tables(prefix):
+    import numpy as np
+
+    out = []
+    for rank in (0, 1):
+        with np.load(f"{prefix}.rank{rank}.npz") as z:
+            out.append({f: (str(z[f].dtype), z[f].tobytes())
+                        for f in z.files})
+    return out
+
+
+def world_run(args, log_dir, env=None, kill_rank1_at=None):
+    """A 2-process world of the CLI through parallel/launch.py: -> (rank
+    results, wall seconds, seconds from the SIGKILL to rank 0's exit or
+    None). With `kill_rank1_at`, rank 1 is SIGKILLed once its stderr shows
+    that fault banner."""
+    from gamesmanmpi_tpu_torch.parallel.launch import start_world
+
+    t0 = time.perf_counter()
+    world = start_world(args, processes=2, log_dir=str(log_dir), env=env)
+    t_kill = None
+    try:
+        if kill_rank1_at is not None:
+            deadline = time.monotonic() + 300
+            while kill_rank1_at not in world.stderr_of(1):
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"rank 1 never reached {kill_rank1_at!r}:\n"
+                        f"{world.stderr_of(1)[-2000:]}")
+                time.sleep(0.05)
+            os.kill(world.pids()[1], signal.SIGKILL)
+            t_kill = time.perf_counter()
+        ranks = world.wait(600)
+    finally:
+        world.wait(0)
+    secs = time.perf_counter() - t0
+    return ranks, secs, (None if t_kill is None
+                         else time.perf_counter() - t_kill)
+
+
+def sharded_phase(result, tmp, spec=C55, answer=(69763700, "TIE", 25),
+                  extra=(), small="connect4:w=5,h=4"):
+    """Phase 14: the sharded engine. `result` is phase 9's classic solve
+    of `spec`; `extra` (`--device cpu`) and a smaller `spec`/`small`
+    rehearse the phase on the CPU."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    extra = list(extra)
+    # (a) Full width, one process, 4 shards sharing the card.
+    with env_set(GAMESMAN_FAKE_DEVICES=4):
+        full, report = cli_solve(["solve", spec, "--devices", "4", *extra])
+    if report_answer(report) != answer:
+        raise AssertionError(f"sharded {spec}: {report}")
+    if full.stats["shards"] != 4 or full.stats["misses"]:
+        raise AssertionError(f"sharded {spec}: stats {full.stats}")
+    _same_tables(full, result, f"sharded {spec} vs classic")
+    one = sharded_fields(full.stats)
+    del full
+    # (b) Shard counts, backward modes and the generic path, each against
+    # the classic engine on the same device.
+    variants = {}
+    table_out = tmp / "sharded_one.npz"
+    classic_small, _ = cli_solve(["solve", small, "--engine", "classic",
+                                  *extra])
+    for label, devices, env, more in (
+            ("devices2", 2, {}, []),
+            ("devices4", 4, {}, ["--table-out", str(table_out)]),
+            ("devices8", 8, {}, []),
+            ("lookup4", 4, {"GAMESMAN_BACKWARD": "lookup"}, [])):
+        with env_set(GAMESMAN_FAKE_DEVICES=devices, **env):
+            r, _ = cli_solve(["solve", small, "--devices", str(devices),
+                              *more, *extra])
+        _same_tables(r, classic_small, f"{small} {label} vs classic")
+        variants[label] = dict(sharded_fields(r.stats),
+                               positions=r.num_positions)
+    for gspec in ("nim:heaps=3-4-5", "chomp:w=4,h=3"):
+        ref, _ = cli_solve(["solve", gspec, "--engine", "classic", *extra])
+        with env_set(GAMESMAN_FAKE_DEVICES=4):
+            r, _ = cli_solve(["solve", gspec, "--devices", "4", *extra])
+        if r.stats["path"] != "generic":
+            raise AssertionError(f"{gspec}: path {r.stats['path']}")
+        _same_tables(r, ref, f"{gspec} sharded vs classic")
+        variants[gspec] = dict(sharded_fields(r.stats),
+                               positions=r.num_positions)
+    with np.load(table_out) as z:
+        one_proc = {f: (str(z[f].dtype), z[f].tobytes()) for f in z.files}
+
+    # (c) A 2-process world on the one card.
+    args = ["solve", small, "--devices", "4", *extra]
+    prefix = tmp / "world"
+    ranks, world_secs, _ = world_run(
+        args + ["--table-out", f"{prefix}.npz"], tmp / "world_logs")
+    for r in ranks:
+        if r.returncode != 0:
+            raise AssertionError(f"world rank {r.rank} exited "
+                                 f"{r.returncode}:\n{r.stderr[-3000:]}")
+    backends = sorted({m.group(1) for r in ranks for m in re.finditer(
+        r"world: rank \d+ of 2, backend (\w+)", r.stderr)})
+    t0_, t1_ = world_tables(prefix)
+    if not t0_ == t1_ == one_proc:
+        raise AssertionError("world rank tables differ from each other or "
+                             "from the one-process table")
+    world = dict(rc=[r.returncode for r in ranks], backend=backends,
+                 wall_secs=world_secs,
+                 elapsed=[ln for r in ranks for ln in r.stdout.splitlines()
+                          if ln.startswith("elapsed:")])
+
+    # (d) Faults in that world: a transient on rank 1 only.
+    fprefix = tmp / "fault"
+    ranks, fault_secs, _ = world_run(
+        args + ["--table-out", f"{fprefix}.npz"], tmp / "fault_logs",
+        env={"GAMESMAN_FAULTS_RANK_1": "sharded.forward:transient:3",
+             "GAMESMAN_RETRY_BASE_SECS": "0"})
+    retries = [len([ln for ln in r.stderr.splitlines()
+                    if ln.startswith("[coordination]") and " retries " in ln])
+               for r in ranks]
+    if [r.returncode for r in ranks] != [0, 0] or retries[0] != retries[1] \
+            or retries[0] < 1:
+        raise AssertionError(f"transient on rank 1: rc "
+                             f"{[r.returncode for r in ranks]}, retries "
+                             f"{retries}:\n{ranks[1].stderr[-2000:]}")
+    if "injecting transient" in ranks[0].stderr:
+        raise AssertionError("the transient fired on rank 0 too")
+    if world_tables(fprefix) != [one_proc, one_proc]:
+        raise AssertionError("tables changed under the retried transient")
+    # Rank 1 SIGKILLed in its third backward step.
+    barrier = 10.0
+    ranks, kill_secs, after_kill = world_run(
+        args, tmp / "kill_logs",
+        env={"GAMESMAN_FAULTS_RANK_1": "sharded.backward:delay=120:3",
+             "GAMESMAN_BARRIER_SECS": barrier,
+             "GAMESMAN_COLLECTIVE_TIMEOUT": 60},
+        kill_rank1_at="injecting delay at sharded.backward")
+    rcs = [r.returncode for r in ranks]
+    if rcs != [124, -signal.SIGKILL] or after_kill > barrier + 30 \
+            or "coordinated abort" not in ranks[0].stderr:
+        raise AssertionError(f"SIGKILL of rank 1: rc {rcs}, rank 0 exited "
+                             f"{after_kill} s after the kill:\n"
+                             f"{ranks[0].stderr[-2000:]}")
+    emit("sharded 5x5", spec=spec, report=report, one_process=one,
+         variants=variants, world=world,
+         transient=dict(rc=[0, 0], retries=retries, wall_secs=fault_secs),
+         sigkill=dict(rc=rcs, barrier_secs=barrier,
+                      rank0_exit_after_kill_secs=after_kill,
+                      wall_secs=kill_secs,
+                      abort=[ln for ln in ranks[0].stderr.splitlines()
+                             if ln.startswith("coordinated abort")]),
+         secs=time.perf_counter() - t0)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1457,6 +1655,7 @@ def main() -> int:
         checkpoint_classic_phase(classic_result, tmp)
         v1, v2 = db_phase(classic_result, tmp)
         serve_phase(classic_result, tmp, v1, v2)
+        sharded_phase(classic_result, tmp)
         del classic_result
         checkpoint_dense_phase(dense_result, tmp)
     finally:

@@ -4,7 +4,9 @@
     gamesman-solve-torch solve GAME [--engine auto|dense|classic]
                          [--device cuda|cpu] [--no-tables] [--paranoid]
                          [--table-out PATH] [--checkpoint-dir DIR]
-                         [--query POS]...
+                         [--query POS]... [--devices N]
+                         [--coordinator HOST:PORT --num-processes P
+                          --process-id I]
     gamesman-solve-torch solve path/to/module.py [--device cuda|cpu] ...
     gamesman-solve-torch export-db GAME --out DIR [--from-checkpoint DIR]
                          [--overwrite] [--compress] [--book-plies N]
@@ -27,6 +29,19 @@ Connect-4 board with sym=0 and no --paranoid/--table-out; `classic` (the
 level-BFS engine) takes every game; `auto` picks dense where it is
 eligible, the solve runs on the card and no --checkpoint-dir is given,
 classic otherwise. GameSpec ``.json`` files are not ported yet and exit 2.
+
+--devices N (N > 1) runs the hash-partitioned sharded engine
+(parallel/sharded.py) over N shards, for `auto` and `classic` and for a
+compat module with `level_of`: in one process on the visible cards
+(sharing one card needs GAMESMAN_FAKE_DEVICES >= N), or across a
+``torch.distributed`` world of processes set by --coordinator,
+--num-processes and --process-id or their GAMESMAN_* env twins
+(parallel/launch.py starts one). In a world --table-out becomes
+rank-qualified (``T.rank<i>.npz``, every rank writes the same global
+table), GAMESMAN_COORD_ADDR defaults to the coordinator's port+1 (the
+retry consensus) and every metric carries a ``rank`` label. `--engine
+dense` and `--checkpoint-dir` with --devices > 1 are not ported yet and
+exit 2. A world that agrees to abort, or loses a peer, exits 124.
 
 --checkpoint-dir seals every solved level into DIR (the reference's
 directory format: either package resumes the other's) and a rerun on the
@@ -106,6 +121,22 @@ def build_parser() -> argparse.ArgumentParser:
         "--query", action="append", default=None, metavar="POS",
         help="after solving, print the value/remoteness of this packed "
         "position (decimal or 0x-hex; repeatable)")
+    s.add_argument(
+        "--devices", type=int, default=1, metavar="N",
+        help="shards to partition the solve over (1 = one device; N > 1 "
+        "= the sharded engine; one card holds N shards when "
+        "GAMESMAN_FAKE_DEVICES >= N)")
+    s.add_argument(
+        "--coordinator", default=None, metavar="HOST:PORT",
+        help="rendezvous of a multi-process run's torch.distributed "
+        "group (env GAMESMAN_COORDINATOR)")
+    s.add_argument(
+        "--num-processes", type=int, default=None,
+        help="processes in the run (env GAMESMAN_NUM_PROCESSES)")
+    s.add_argument(
+        "--process-id", type=int, default=None,
+        help="this process's rank in [0, num-processes) (env "
+        "GAMESMAN_PROCESS_ID)")
 
     e = sub.add_parser(
         "export-db",
@@ -322,11 +353,96 @@ def solve_main(argv=None) -> tuple[int, Optional[object]]:
     return _solve(args, t0)
 
 
+def _not_ported_sharded(args) -> Optional[int]:
+    """Exit 2 for the multi-device paths of the next slice: neither runs
+    another engine silently."""
+    if args.devices > 1 and args.engine == "dense":
+        return _error("--engine dense with --devices > 1 (the meshed dense "
+                      "engine) is not ported yet")
+    if args.devices > 1 and args.checkpoint_dir:
+        return _error("--checkpoint-dir with --devices > 1 (sharded "
+                      "checkpoints) is not ported yet")
+    return None
+
+
+def _rank_path(path: str, rank: int) -> str:
+    """``out.npz`` -> ``out.rank0.npz``: ranks never race onto one file."""
+    import os
+
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{rank}{ext}"
+
+
+def _join_world(args, device) -> tuple[int, Optional[int]]:
+    """Join the process group when a coordinator is given (flag, then env
+    GAMESMAN_COORDINATOR) -> (world size, None), or (0, exit code 2).
+
+    Then the reference's rank plumbing: a rank-qualified --table-out,
+    GAMESMAN_COORD_ADDR defaulting to the coordinator's host at port+1
+    (the retry consensus), and a ``rank`` label on every metric."""
+    import os
+
+    from gamesmanmpi_tpu_torch.parallel.mesh import (
+        init_distributed,
+        process_identity,
+    )
+    from gamesmanmpi_tpu_torch.utils.env import env_opt
+
+    coordinator, world, rank = process_identity(
+        args.coordinator, args.num_processes, args.process_id)
+    if not coordinator:
+        return 1, None
+    if (args.num_processes is None
+            and env_opt("GAMESMAN_NUM_PROCESSES") is None) or (
+            args.process_id is None
+            and env_opt("GAMESMAN_PROCESS_ID") is None):
+        return 0, _error("a coordinator (--coordinator / "
+                         "GAMESMAN_COORDINATOR) requires --num-processes and "
+                         "--process-id (or their GAMESMAN_* env twins)")
+    if args.devices < world or args.devices % world:
+        return 0, _error(f"--devices {args.devices} must be a multiple of "
+                         f"the {world} processes")
+    backend = init_distributed(device, coordinator, world, rank)
+    print(f"world: rank {rank} of {world}, backend {backend}",
+          file=sys.stderr, flush=True)
+    if world <= 1:
+        return world, None
+    if args.table_out:
+        args.table_out = _rank_path(args.table_out, rank)
+    if not env_opt("GAMESMAN_COORD_ADDR"):
+        host, _, port = coordinator.rpartition(":")
+        try:
+            os.environ["GAMESMAN_COORD_ADDR"] = (
+                f"{host or '127.0.0.1'}:{int(port) + 1}")
+        except ValueError:
+            pass  # unparsable port: coordination stays unconfigured
+    from gamesmanmpi_tpu_torch.obs import default_registry
+
+    default_registry().set_constant_labels(rank=str(rank))
+    return world, None
+
+
+def _sharded_solver(game, args, device):
+    """The sharded engine over --devices shards -> (solver, None), or
+    (None, exit code 2) when the shards do not fit the devices."""
+    from gamesmanmpi_tpu_torch.parallel import ShardedSolver
+
+    try:
+        return ShardedSolver(game, num_shards=args.devices, device=device,
+                             paranoid=args.paranoid,
+                             store_tables=not args.no_tables), None
+    except ValueError as e:
+        return None, _error(str(e))
+
+
 def _solve(args, t0: float) -> tuple[int, Optional[object]]:
     from gamesmanmpi_tpu_torch.games import Connect4
 
     game, rc = _get_game(args.game)
     if game is None:
+        return rc, None
+    rc = _not_ported_sharded(args)
+    if rc is not None:
         return rc, None
     family_base = (isinstance(game, Connect4) and not game.sym
                    and not args.paranoid and not args.table_out)
@@ -342,12 +458,19 @@ def _solve(args, t0: float) -> tuple[int, Optional[object]]:
     device, rc = _device(args.device)
     if device is None:
         return rc, None
+    world, rc = _join_world(args, device)
+    if rc is not None:
+        return rc, None
 
     checkpointer = _checkpointer(args)
+    if args.devices > 1 or world > 1:
+        solver, rc = _sharded_solver(game, args, device)
+        if solver is None:
+            return rc, None
     # Same platform policy as the reference: the dense engine is the
     # accelerator's pick; on the CPU, auto runs the classic engine.
-    if args.engine == "dense" or (args.engine == "auto" and dense_eligible
-                                  and device.type == "cuda"):
+    elif args.engine == "dense" or (args.engine == "auto" and dense_eligible
+                                    and device.type == "cuda"):
         from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
 
         solver = DenseSolver(game, store_tables=not args.no_tables,
@@ -371,7 +494,12 @@ def _checkpointer(args):
 
 def _run_solve(solve, checkpointer, args, t0: float):
     """Run `solve()` and report it -> (exit code, SolveResult or None)."""
+    import os
+
     from gamesmanmpi_tpu_torch.resilience import preempt
+    from gamesmanmpi_tpu_torch.resilience.coordination import (
+        CoordinatedAbort,
+    )
 
     # Only a checkpointed solve gets the grace handlers: exit 75 promises
     # "rerun me on the same directory", and a solve with nothing sealed
@@ -384,17 +512,36 @@ def _run_solve(solve, checkpointer, args, t0: float):
         print(f"preempted: {e}", file=sys.stderr)
         sys.stderr.flush()
         return preempt.GRACE_EXIT_CODE, None
+    except CoordinatedAbort as e:
+        # The world agreed to stop (a peer died, diverged or timed out):
+        # the reference's resumable-abort contract, exit 124. os._exit: a
+        # clean exit could block tearing down a group with a dead peer.
+        print(f"coordinated abort: {e}", file=sys.stderr)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(preempt.WATCHDOG_EXIT_CODE)
     finally:
         restore_grace()
-    _report(result, 1, time.perf_counter() - t0, args)
+    _report(result, args.devices, time.perf_counter() - t0, args)
+    _leave_world()
     return 0, result
+
+
+def _leave_world() -> None:
+    """Tear the process group down after a finished solve."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
     """The compat path (the reference's `_solve_main` module branch): a
     module that declares `level_of` runs on the classic engine through
-    compat.TensorizedModule; any other module is solved by the host
-    oracle. --engine dense applies to the built-in Connect-4 family only
+    compat.TensorizedModule (on the sharded engine with --devices > 1 or
+    in a world); any other module is solved by the host oracle, and
+    --devices/--paranoid/--checkpoint-dir are then ignored with a
+    warning. --engine dense applies to the built-in Connect-4 family only
     and exits 2."""
     from gamesmanmpi_tpu_torch.compat import (
         load_game_module,
@@ -405,6 +552,9 @@ def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
     if args.engine == "dense":
         return _error("--engine dense applies to the built-in Connect-4 "
                       "family, not compat game modules"), None
+    rc = _not_ported_sharded(args)
+    if rc is not None:
+        return rc, None
     try:
         module = load_game_module(args.game)
     except (AttributeError, ImportError) as e:
@@ -413,7 +563,13 @@ def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
     if device is None:
         return rc, None
     engine_capable = hasattr(module, "level_of")
-    for flag, name in ((args.paranoid, "--paranoid"),
+    world = 1
+    if engine_capable:
+        world, rc = _join_world(args, device)
+        if rc is not None:
+            return rc, None
+    for flag, name in ((args.devices > 1, "--devices"),
+                       (args.paranoid, "--paranoid"),
                        (args.checkpoint_dir, "--checkpoint-dir")):
         if flag and not engine_capable:
             print(f"warning: {name} needs the tensorized compat path and "
@@ -422,11 +578,13 @@ def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
                   "engine", file=sys.stderr)
     if engine_capable:
         checkpointer = _checkpointer(args)
+        kwargs = ({"devices": max(args.devices, world)}
+                  if args.devices > 1 or world > 1
+                  else {"checkpointer": checkpointer})
         return _run_solve(
             lambda: solve_module_tensorized(
                 module, device=device, paranoid=args.paranoid,
-                checkpointer=checkpointer,
-                store_tables=not args.no_tables),
+                store_tables=not args.no_tables, **kwargs),
             checkpointer, args, t0)
     value, remoteness, table = solve_module(module)
     print(f"game: {pathlib.Path(args.game).stem} (compat module)")

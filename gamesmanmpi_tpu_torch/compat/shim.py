@@ -72,9 +72,11 @@ def _probe_max_moves(initial, gen, do, prim) -> int:
     return best
 
 
-def solve_module_tensorized(module, *, max_retries: int = 6, **kwargs):
+def solve_module_tensorized(module, *, devices: int = 1,
+                            max_retries: int = 6, **kwargs):
     """Drive an unmodified scalar module through the port's classic engine
-    on one device (the reference's solve_module_jitted with devices=1).
+    on one device, or with devices > 1 through the sharded engine over
+    that many shards (the reference's solve_module_jitted).
 
     Lifts the module with TensorizedModule (auto-deriving max_moves when
     the module doesn't declare it) and solves; if a position mid-solve
@@ -89,12 +91,19 @@ def solve_module_tensorized(module, *, max_retries: int = 6, **kwargs):
     kwargs go to the solver (device=, paranoid=, checkpointer=,
     store_tables=, ...). Returns a SolveResult.
     """
-    from gamesmanmpi_tpu_torch.solve.engine import Solver
+    if devices > 1:
+        from functools import partial
+
+        from gamesmanmpi_tpu_torch.parallel import ShardedSolver
+
+        solver = partial(ShardedSolver, num_shards=devices)
+    else:
+        from gamesmanmpi_tpu_torch.solve.engine import Solver as solver
 
     game = TensorizedModule(module)
     for attempt in range(max_retries + 1):
         try:
-            return Solver(game, **kwargs).solve()
+            return solver(game, **kwargs).solve()
         except ValueError as e:
             if _OVERFLOW_TOKEN not in str(e) or attempt == max_retries:
                 raise

@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from gamesmanmpi_tpu_torch.core.bitops import SENTINEL
-from gamesmanmpi_tpu_torch.core.codec import pack_cells
+from gamesmanmpi_tpu_torch.core.codec import pack_cells, unpack_cells
+from gamesmanmpi_tpu_torch.core.values import UNDECIDED
 from gamesmanmpi_tpu_torch.ops.dedup import unique_tailed, with_sentinel_slot
 
 
@@ -51,3 +52,15 @@ def gather_cells(uidx: torch.Tensor, wvals: torch.Tensor,
     cells = pack_cells(wvals, wrem).view(torch.int32)
     got = cells[uidx.to(torch.int64).clamp(0, cells.numel() - 1)]
     return torch.where(uidx >= 0, got, 0).view(torch.uint32)
+
+
+def combine_edge_cells(cells_flat: torch.Tensor, max_moves: int):
+    """Unpack per-edge reply cells into ([B, M] values, remoteness, mask).
+
+    cells_flat: [B*M] uint32 packed cells in parent child-slot order, cell
+    0 (UNDECIDED) marking a slot without an edge: a real edge always
+    carries a decided value, so the UNDECIDED cell doubles as the no-edge
+    flag, as the lookup join's miss flag does.
+    """
+    cv, cr = unpack_cells(cells_flat.reshape(-1, max_moves))
+    return cv, cr, cv != UNDECIDED

@@ -1,8 +1,9 @@
 """Deterministic fault injection (port of
 gamesmanmpi_tpu/resilience/faults.py).
 
-Named fault points sit on the solve's host-side level paths (engine level
-steps, checkpoint seals and loads), the block store's write-behind, the
+Named fault points sit on the solve's host-side level paths (engine and
+sharded level steps, the sharded engine's collectives and consensus
+rounds, checkpoint seals and loads), the block store's write-behind, the
 DB reader's probe and the serving fleet (batcher flush, worker spawn and
 heartbeat, supervisor reload), and are armed from one environment
 variable, so every failure the checkpoint claims to
@@ -82,15 +83,22 @@ PORTED_POINTS = {
                        "here is a liveness stall the supervisor kills)",
     "serve.reload": "supervisor: at the top of a rolling manifest "
                     "reload, before any worker is drained",
+    "sharded.forward": "sharded forward: the entry of each level step "
+                       "(before any collective of the step)",
+    "sharded.backward": "sharded backward: the entry of each resolved "
+                        "level and of the root step",
+    "sharded.collective": "sharded engine: the top of every "
+                          "collective-safe retry attempt (a world)",
+    "coord.barrier": "coordination client: before each consensus round",
+    "coord.handshake": "coordination client: before each dial of the "
+                       "coordinator",
 }
 
 #: Every point of the reference (gamesmanmpi_tpu/resilience/faults.py
 #: KNOWN_POINTS): the ported ones, and those whose subsystem the port
 #: does not have yet.
 KNOWN_POINTS = dict(PORTED_POINTS, **{p: "not yet ported" for p in (
-    "sharded.forward", "sharded.backward", "sharded.collective",
-    "coord.barrier", "coord.handshake", "registry.fetch",
-    "registry.publish", "registry.install", "jobs.claim",
+    "registry.fetch", "registry.publish", "registry.install", "jobs.claim",
 )})
 
 KINDS = ("transient", "fatal", "delay", "kill", "torn", "enospc", "oom")

@@ -240,3 +240,49 @@ def test_db_export_and_reader_on_card_match_cpu(spec, tmp_path):
         for x, y in zip(card.lookup_best(q), cpu.lookup_best(q)):
             assert x.dtype == y.dtype
             np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["edges", "lookup"])
+@pytest.mark.parametrize("spec", ["tictactoe", "nim:heaps=3-4-5",
+                                  "connect4:w=4,h=4"])
+def test_sharded_solve_on_card_matches_cpu(spec, mode, monkeypatch):
+    """Four shards sharing the card (GAMESMAN_FAKE_DEVICES=4) give the
+    CPU's tables, through both backwards."""
+    from gamesmanmpi_tpu_torch.parallel import ShardedSolver
+
+    _need_card()
+    monkeypatch.setenv("GAMESMAN_FAKE_DEVICES", "4")
+    monkeypatch.setenv("GAMESMAN_BACKWARD", mode)
+    card = ShardedSolver(get_game(spec), num_shards=4, paranoid=True).solve()
+    cpu = ShardedSolver(get_game(spec), num_shards=4, device="cpu").solve()
+    assert card.stats["device"].startswith("cuda")
+    assert card.stats["peak_mem_bytes"] > 0 and card.stats["misses"] == 0
+    assert (card.value, card.remoteness, card.num_positions) == (
+        cpu.value, cpu.remoteness, cpu.num_positions)
+    assert sorted(card.levels) == sorted(cpu.levels)
+    for k, t in cpu.levels.items():
+        for field in ("states", "values", "remoteness"):
+            np.testing.assert_array_equal(getattr(card.levels[k], field),
+                                          getattr(t, field))
+
+
+def test_gloo_world_on_card_matches_cpu_world(tmp_path):
+    """Two processes sharing the card (gloo moves the CUDA tensors) write
+    the tables a CPU world writes."""
+    from gamesmanmpi_tpu_torch.parallel.launch import launch
+
+    _need_card()
+    tables = {}
+    for dev in ("cuda", "cpu"):
+        ranks = launch(["solve", "connect4:w=3,h=4,connect=3", "--devices",
+                        "4", "--device", dev, "--table-out",
+                        str(tmp_path / f"{dev}.npz")], processes=2,
+                       log_dir=str(tmp_path / dev), timeout=300)
+        for r in ranks:
+            assert r.returncode == 0, r.stderr[-2000:]
+            assert "backend gloo" in r.stderr
+        for rank in (0, 1):
+            with np.load(tmp_path / f"{dev}.rank{rank}.npz") as z:
+                tables[dev, rank] = {f: z[f].tobytes() for f in z.files}
+    assert (tables["cuda", 0] == tables["cuda", 1] == tables["cpu", 0]
+            == tables["cpu", 1])

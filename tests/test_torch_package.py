@@ -91,6 +91,10 @@ def test_import_and_cpu_solve_leave_jax_out():
         "import gamesmanmpi_tpu_torch.serve.worker\n"
         "import gamesmanmpi_tpu_torch.resilience.retry\n"
         "import gamesmanmpi_tpu_torch.utils.metrics\n"
+        "import gamesmanmpi_tpu_torch.parallel.launch\n"
+        "import gamesmanmpi_tpu_torch.resilience.coordination\n"
+        "assert main(['solve', 'nim:heaps=3-4-5', '--device', 'cpu',"
+        " '--devices', '4']) == 0\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'gamesmanmpi_tpu'))\n"
@@ -101,7 +105,8 @@ def test_import_and_cpu_solve_leave_jax_out():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "positions: 694" in proc.stdout
-    assert "positions: 120" in proc.stdout  # the classic engine's nim
+    assert proc.stdout.count("positions: 120") == 2  # classic, sharded
+    assert "devices: 4" in proc.stdout
     assert "query 0x1: value=TIE remoteness=8" in proc.stdout
     assert "query 0x111: value=TIE remoteness=9" in proc.stdout
     assert "opening book: 82 entries to 2 plies" in proc.stdout

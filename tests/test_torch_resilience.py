@@ -129,7 +129,8 @@ def test_known_points_are_the_references():
         "ckpt.save_level", "ckpt.load_level", "ckpt.save_frontier",
         "store.writebehind", "db.probe", "serve.block_decode",
         "serve.flush", "serve.worker_spawn", "serve.heartbeat",
-        "serve.reload"}
+        "serve.reload", "sharded.forward", "sharded.backward",
+        "sharded.collective", "coord.barrier", "coord.handshake"}
     assert faults.KILL_EXIT_CODE == ref_faults.KILL_EXIT_CODE == 77
     assert faults.TORN_EXIT_CODE == ref_faults.TORN_EXIT_CODE == 86
     assert preempt.GRACE_EXIT_CODE == 75
@@ -143,6 +144,21 @@ def test_unported_point_refuses_to_arm(point, monkeypatch):
     monkeypatch.setenv("GAMESMAN_FAULTS", f"{point}:kill")
     with pytest.raises(ValueError, match="not yet ported"):
         faults.configure_from_env()
+
+
+@pytest.mark.parametrize("point", [
+    "sharded.forward", "sharded.backward", "sharded.collective",
+    "coord.barrier", "coord.handshake"])
+def test_sharded_points_arm(point):
+    """The sharded engine's and the coordination client's points arm now
+    that the port fires them (parallel/sharded.py,
+    resilience/coordination.py)."""
+    armed = faults.configure(f"{point}:transient:2")
+    assert [d.point for d in armed[point]] == [point]
+    faults.fire(point)  # visit 1: not due
+    with pytest.raises(TransientFault):
+        faults.fire(point)
+    faults.clear()
 
 
 def test_cli_refuses_a_bad_fault_spec(monkeypatch, capsys):
