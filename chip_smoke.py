@@ -108,6 +108,39 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              counts and the same tables; rank 1 SIGKILLed in its third
              backward step ends rank 0 with exit 124 (the coordinated
              abort) within the barrier deadline.
+15. sharded checkpoint, meshed dense, hybrid 5x5 — (a) `solve
+             connect4:w=5,h=5 --devices 4 --checkpoint-dir D` in-process
+             (GAMESMAN_FAKE_DEVICES=4, default compression): 69,763,700 /
+             TIE / 25, every level identical to phase 9's, every level
+             sealed per shard with the edges and the frontier snapshot;
+             the seal seconds and the bytes raw, stored and on disk. (b)
+             A child killed by GAMESMAN_FAULTS=sharded.backward:kill:10
+             exits 77; the rerun on a (hard-linked) copy resumes to phase
+             9's tables, every level shard sealed before the kill keeping
+             its mtime and crc. (c) Copies of the killed tree resumed at
+             --devices 2 and 8 report resharded_from 4, tables identical.
+             (b) and (c) set GAMESMAN_CKPT_COMPRESS=0 (raw files) to keep
+             the phase short. (d) `export-db --from-checkpoint D` writes
+             phase 12's v1 files (sha256). (e) A 2-process world on the
+             card (5x4, --devices 4 --checkpoint-dir): rank 1 SIGKILLed in
+             the backward, rank 0 exits 124; the world's rerun resumes,
+             and a one-process --devices 4 run resumes a copy of the same
+             directory; both tables equal phase 14's one-process table.
+             (f) `--engine dense --devices 4`: cells byte-identical to
+             phase 6's and the same nmiss per level, the gather's launches
+             counted. (g) `--engine hybrid --hybrid-cutover 16`, on one
+             device and with --devices 4: 69,763,700 / TIE / 25, the BFS
+             region's levels 17-25 identical to phase 9's, the answers of
+             20,000 sampled reachable states of levels 0-16 equal phase
+             9's, the gather's launches counted; then hybrid sym=1 at 5x4
+             against the classic engine. (f) and (g)'s one-device hybrid
+             each run twice more: once with every window gather of the
+             path held against the plain version on its own inputs (`out`
+             bit-identical, `nmiss` equal, as many launches as the counted
+             run, the plain nmiss summing to the run's), and once with
+             GAMESMAN_DENSE_GATHER=plain; both runs' dense cells equal the
+             counted run's byte for byte. Each run's seconds and peak
+             memory beside the dense and classic numbers of the call.
 
 Then the script's seconds, the kernels line, the `nvidia-smi`
 name/power-limit line, and last
@@ -1617,6 +1650,399 @@ def sharded_phase(result, tmp, spec=C55, answer=(69763700, "TIE", 25),
          secs=time.perf_counter() - t0)
 
 
+def hardlink_copy(src, dst):
+    """A copy of a checkpoint directory that shares its files: a resume
+    never writes a sealed file in place (tmp + os.replace, quarantines
+    rename), so the copies cannot disturb each other."""
+    shutil.copytree(src, dst, copy_function=os.link)
+    return dst
+
+
+def sealed_level_files(d):
+    """{file name: (mtime ns, crc)} of every sealed level shard file."""
+    m = manifest(d)
+    out = {}
+    for k, num in m.get("sharded_levels", {}).items():
+        for s in range(int(num)):
+            name = f"level_{int(k):04d}.shard_{s:04d}.npz"
+            out[name] = ((pathlib.Path(d) / name).stat().st_mtime_ns,
+                         m["crc"][name])
+    return out
+
+
+def ckpt_fields(s):
+    return dict(secs_forward=s["secs_forward"],
+                secs_backward=s["secs_backward"],
+                ckpt_save_secs=s["ckpt_save_secs"],
+                ckpt_bytes_raw=s["ckpt_bytes_raw"],
+                ckpt_bytes_stored=s["ckpt_bytes_stored"],
+                io_wait_secs=s["io_wait_secs"],
+                peak_mem_bytes=s["peak_mem_bytes"],
+                backward_edges_levels=s["backward_edges_levels"],
+                resharded_from=s["resharded_from"],
+                edges_geometry_fallback_levels=s[
+                    "edges_geometry_fallback_levels"])
+
+
+@contextlib.contextmanager
+def checked_gather(tally):
+    """Route the dense engine's window gathers (the meshed dense engine's
+    and the hybrid's dense region go through solve/dense.py) through a
+    wrapper that also runs the plain version on the same inputs: `out`
+    bit-identical and `nmiss` equal on every launch, else AssertionError.
+    `tally` collects the launches checked, the plain version's summed
+    nmiss and the distinct (n, m) shapes."""
+    from gamesmanmpi_tpu_torch.ops.window_gather import (
+        monotone_window_gather_ref,
+    )
+    from gamesmanmpi_tpu_torch.solve import dense
+
+    kernel = dense.monotone_window_gather
+
+    def both(table, idx, block, window):
+        out, nm = kernel(table, idx, block, window)
+        ref, nm_ref = monotone_window_gather_ref(table, idx, block, window)
+        if not torch.equal(out, ref) or int(nm) != int(nm_ref):
+            raise AssertionError(
+                f"window gather on the path differs from its plain version "
+                f"at n={idx.shape[0]} m={table.shape[0]}: nmiss {int(nm)} "
+                f"vs {int(nm_ref)}")
+        tally["launches_checked"] += 1
+        tally["plain_nmiss"] += int(nm_ref)
+        tally["shapes"].add((int(idx.shape[0]), int(table.shape[0])))
+        return out, nm
+
+    dense.monotone_window_gather = both
+    try:
+        yield
+    finally:
+        dense.monotone_window_gather = kernel
+
+
+def gather_cross_checks(argv, what, kernel_cells, kernel_nmiss, launches,
+                        cells_of):
+    """The path of `argv` again twice: once with every window gather held
+    against its plain version on its own inputs (checked_gather), and once
+    with GAMESMAN_DENSE_GATHER=plain; both runs' dense cells must equal
+    `kernel_cells` (the counted kernel run's) byte for byte, the checked
+    run must check `launches` launches (None on the CPU, where the path
+    launches no kernel), and the plain version's nmiss must sum to
+    `kernel_nmiss`. -> a summary for the phase line."""
+    import numpy as np
+
+    def same_cells(r, label):
+        cells = cells_of(r)
+        if sorted(cells) != sorted(kernel_cells):
+            raise AssertionError(f"{what} {label}: levels {sorted(cells)}")
+        for L, c in kernel_cells.items():
+            if not np.array_equal(cells[L], c):
+                raise AssertionError(f"{what} {label}: level {L} cells "
+                                     "differ from the kernel run's")
+
+    tally = {"launches_checked": 0, "plain_nmiss": 0, "shapes": set()}
+    t0 = time.perf_counter()
+    with env_set(GAMESMAN_FAKE_DEVICES=4), checked_gather(tally):
+        r, _ = cli_solve(argv)
+    checked_secs = time.perf_counter() - t0
+    if launches is not None and tally["launches_checked"] != launches \
+            or tally["plain_nmiss"] != kernel_nmiss \
+            or r.stats["gather_nmiss"] != kernel_nmiss:
+        raise AssertionError(f"{what}: checked run {tally}, nmiss "
+                             f"{r.stats['gather_nmiss']} vs {kernel_nmiss}, "
+                             f"{launches} launches counted")
+    same_cells(r, "checked")
+    del r
+    t0 = time.perf_counter()
+    with env_set(GAMESMAN_FAKE_DEVICES=4, GAMESMAN_DENSE_GATHER="plain"):
+        r, _ = cli_solve(argv)
+    plain_secs = time.perf_counter() - t0
+    if r.stats["gather_mode"] != "plain":
+        raise AssertionError(f"{what}: gather_mode {r.stats['gather_mode']}")
+    same_cells(r, "plain")
+    del r
+    return dict(launches_checked=tally["launches_checked"],
+                plain_nmiss=tally["plain_nmiss"],
+                shapes_checked=len(tally["shapes"]),
+                checked_secs=checked_secs, plain_run_secs=plain_secs)
+
+
+def hybrid_check(h, result, n, seed, what):
+    """A hybrid result against the classic tables of the same game: every
+    BFS-region level identical, and the lookups of `n` sampled states of
+    the dense region equal the table's."""
+    import numpy as np
+
+    K = h.cutover
+    bfs = {k: t for k, t in result.levels.items() if k > K}
+    if sorted(h.levels) != sorted(bfs):
+        raise AssertionError(f"{what}: BFS levels {sorted(h.levels)}")
+    for k, t in bfs.items():
+        u = h.levels[k]
+        for field in ("states", "values", "remoteness"):
+            if not np.array_equal(getattr(u, field), getattr(t, field)):
+                raise AssertionError(f"{what}: level {k} {field} differ")
+    low = type(result)(result.game, result.value, result.remoteness,
+                       {k: t for k, t in result.levels.items() if k <= K},
+                       result.stats)
+    states, values, rems = sample_states(low, n, seed)
+    for s, v, r in zip(states, values, rems):
+        if h.lookup(int(s)) != (int(v), int(r)):
+            raise AssertionError(f"{what}: {int(s):#x} answers "
+                                 f"{h.lookup(int(s))}, not {(v, r)}")
+    return len(states)
+
+
+def hybrid_fields(h, launches):
+    s = h.stats
+    return dict(positions=h.num_positions, value=h.value,
+                remoteness=h.remoteness, cutover=s["cutover"],
+                devices=s["devices"], secs_total=s["secs_total"],
+                secs_forward=s["secs_forward"], secs_bfs=s["secs_bfs"],
+                secs_boundary=s["secs_boundary"],
+                positions_dense_region=s["positions_dense_region"],
+                positions_bfs_region=s["positions_bfs_region"],
+                frontier_at_boundary=s["frontier_at_boundary"],
+                gather_nmiss=s["gather_nmiss"],
+                peak_mem_bytes=s["peak_mem_bytes"],
+                launches=launches["monotone_window_gather"])
+
+
+def reshard_hybrid_phase(result, dense_result, tmp, v1, spec=C55,
+                         answer=(69763700, "TIE", 25), extra=(),
+                         small="connect4:w=5,h=4", world_table=None,
+                         cutover=16, kill=10, samples=20000):
+    """Phase 15: sharded checkpoints with reshard, the meshed dense engine
+    and the hybrid. `result` is phase 9's classic solve of `spec`,
+    `dense_result` phase 6's dense one, `v1` phase 12's streamed DB and
+    `world_table` phase 14's one-process `--devices 4` table of `small`;
+    `extra` (`--device cpu`) and smaller boards rehearse the phase on the
+    CPU. -> the gather's launches per path."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch import kernels
+    from gamesmanmpi_tpu_torch.store import file_crc32
+
+    t0 = time.perf_counter()
+    extra = list(extra)
+    base = {"classic": dict(secs_forward=result.stats["secs_forward"],
+                            secs_backward=result.stats["secs_backward"],
+                            peak_mem_bytes=result.stats["peak_mem_bytes"]),
+            "dense": dict(secs_backward=dense_result.stats["secs_backward"],
+                          peak_mem_bytes=dense_result.stats.get(
+                              "peak_mem_bytes"))}
+    # (a) Uninterrupted sharded checkpoint, default compression.
+    D = tmp / "sharded_ckpt"
+    ta = time.perf_counter()
+    with env_set(GAMESMAN_FAKE_DEVICES=4):
+        full, report = cli_solve(["solve", spec, "--devices", "4",
+                                  "--checkpoint-dir", str(D), *extra])
+    secs_a = time.perf_counter() - ta
+    if report_answer(report) != answer:
+        raise AssertionError(f"sharded checkpoint {spec}: {report}")
+    _same_tables(full, result, f"sharded checkpoint {spec} vs classic")
+    m = manifest(D)
+    nlev = len(result.levels)
+    if sorted(int(k) for k in m["sharded_levels"]) != list(range(nlev)) \
+            or m["frontier_shards"] != 4 or "forward_level_shards" in m:
+        raise AssertionError(f"sharded checkpoint manifest: {sorted(m)}")
+    uninterrupted_ = dict(ckpt_fields(full.stats), secs=secs_a,
+                          disk_bytes=disk_bytes(D),
+                          edge_levels=len(m.get("edge_levels", {})))
+    del full
+
+    # (b) Kill and resume, raw files (GAMESMAN_CKPT_COMPRESS=0).
+    raw = {"GAMESMAN_CKPT_COMPRESS": "0"}
+    K = tmp / "sharded_killed"
+    argv = ["solve", spec, "--devices", "4", *extra]
+    _, _, secs_killed = run_child(
+        argv + ["--checkpoint-dir", str(K)], 77,
+        dict(raw, GAMESMAN_FAKE_DEVICES="4",
+             GAMESMAN_FAULTS=f"sharded.backward:kill:{kill}"))
+    sealed = sorted(int(k) for k in manifest(K).get("sharded_levels", {}))
+    if len(sealed) < kill // 2 or sealed[-1] != nlev - 1:
+        raise AssertionError(f"killed sharded run sealed {sealed}")
+    B = hardlink_copy(K, tmp / "sharded_b")
+    before = sealed_level_files(B)
+    with env_set(GAMESMAN_FAKE_DEVICES=4, **raw):
+        resumed, report = cli_solve(argv + ["--checkpoint-dir", str(B)])
+    if report_answer(report) != answer:
+        raise AssertionError(f"resumed sharded {spec}: {report}")
+    _same_tables(resumed, result, f"resumed sharded {spec} vs classic")
+    m = manifest(B)
+    for name, (mtime, crc) in before.items():
+        now = ((B / name).stat().st_mtime_ns, m["crc"][name])
+        if now != (mtime, crc) or file_crc32(B / name) != crc:
+            raise AssertionError(f"{name} was rewritten by the resume")
+    resumed_ = dict(ckpt_fields(resumed.stats),
+                    sealed_untouched=len(before), killed_secs=secs_killed,
+                    levels_sealed_at_kill=len(sealed))
+    del resumed
+
+    # (c) Reshard: copies of the killed tree at 2 and 8 shards.
+    reshard = {}
+    for S in (2, 8):
+        C = hardlink_copy(K, tmp / f"sharded_c{S}")
+        with env_set(GAMESMAN_FAKE_DEVICES=S, **raw):
+            r, report = cli_solve(["solve", spec, "--devices", str(S),
+                                   "--checkpoint-dir", str(C), *extra])
+        if report_answer(report) != answer \
+                or r.stats["resharded_from"] != 4:
+            raise AssertionError(f"reshard 4 -> {S}: {report}, "
+                                 f"{r.stats['resharded_from']}")
+        _same_tables(r, result, f"reshard 4 -> {S} vs classic")
+        reshard[S] = ckpt_fields(r.stats)
+        del r
+        shutil.rmtree(C)
+    shutil.rmtree(B)
+
+    # (d) The sharded directory exported: phase 12's v1 files.
+    lines, rss_d, secs_d = export_child(
+        [spec, "--from-checkpoint", str(D), "--out", str(tmp / "db_sharded"),
+         *extra], answer, nlev)
+    if digests(tmp / "db_sharded") != digests(v1):
+        raise AssertionError("sharded export differs from the classic v1 "
+                             "export")
+    export = dict(secs=secs_d, peak_rss_bytes=rss_d, files=len(digests(v1)))
+    shutil.rmtree(tmp / "db_sharded")
+    shutil.rmtree(D)
+    shutil.rmtree(K)
+
+    # (e) A 2-process world on the one card, checkpointed, rank 1 killed.
+    W = tmp / "world_ckpt"
+    wargs = ["solve", small, "--devices", "4", "--checkpoint-dir", str(W),
+             *extra]
+    barrier = 10.0
+    ranks, kill_secs, after_kill = world_run(
+        wargs, tmp / "wk_logs",
+        env={"GAMESMAN_FAULTS_RANK_1": "sharded.backward:delay=120:3",
+             "GAMESMAN_BARRIER_SECS": barrier,
+             "GAMESMAN_COLLECTIVE_TIMEOUT": 60},
+        kill_rank1_at="injecting delay at sharded.backward")
+    rcs = [r.returncode for r in ranks]
+    if rcs != [124, -signal.SIGKILL]:
+        raise AssertionError(f"checkpointed world, rank 1 killed: rc {rcs}:"
+                             f"\n{ranks[0].stderr[-2000:]}")
+    wsealed = len(manifest(W).get("sharded_levels", {}))
+    one_copy = hardlink_copy(W, tmp / "world_one")
+    prefix = tmp / "world_resumed"
+    ranks, resume_secs, _ = world_run(
+        wargs + ["--table-out", f"{prefix}.npz"], tmp / "wr_logs")
+    if [r.returncode for r in ranks] != [0, 0]:
+        raise AssertionError(f"world resume: rc "
+                             f"{[r.returncode for r in ranks]}:\n"
+                             f"{ranks[0].stderr[-2000:]}")
+    t0_, t1_ = world_tables(prefix)
+    with env_set(GAMESMAN_FAKE_DEVICES=4):
+        one, _ = cli_solve(["solve", small, "--devices", "4",
+                            "--checkpoint-dir", str(one_copy),
+                            "--table-out", str(tmp / "world_one.npz"),
+                            *extra])
+    with np.load(tmp / "world_one.npz") as z:
+        one_t = {f: (str(z[f].dtype), z[f].tobytes()) for f in z.files}
+    want = one_t
+    if world_table is not None:
+        with np.load(world_table) as z:
+            want = {f: (str(z[f].dtype), z[f].tobytes()) for f in z.files}
+    if not t0_ == t1_ == one_t == want:
+        raise AssertionError("resumed world / one-process tables differ")
+    world = dict(killed_rc=rcs, rank0_exit_after_kill_secs=after_kill,
+                 levels_sealed=wsealed, world_resume_secs=resume_secs,
+                 epoch=manifest(W)["run"]["epoch"],
+                 one_process=dict(secs_backward=one.stats["secs_backward"],
+                                  resharded_from=one.stats["resharded_from"]))
+    del one
+    shutil.rmtree(W)
+    shutil.rmtree(one_copy)
+
+    # (f) The meshed dense engine, launches counted.
+    kernels.reset_launches()
+    with env_set(GAMESMAN_FAKE_DEVICES=4):
+        md, report = cli_solve(["solve", spec, "--engine", "dense",
+                                "--devices", "4", *extra])
+    launches_md = dict(kernels.LAUNCHES)
+    if report_answer(report) != answer or md.stats["devices"] != 4:
+        raise AssertionError(f"meshed dense {spec}: {report}")
+    for L, cells in dense_result.cells.items():
+        if not np.array_equal(md.cells[L], cells):
+            raise AssertionError(f"meshed dense level {L} differs")
+    if md.stats["gather_nmiss_per_level"] != dense_result.stats[
+            "gather_nmiss_per_level"]:
+        raise AssertionError("meshed dense nmiss differs per level")
+    if "cpu" not in extra and launches_md["monotone_window_gather"] <= 0:
+        raise AssertionError(f"meshed dense launched no gather: "
+                             f"{launches_md}")
+    meshed = dict(secs_backward=md.stats["secs_backward"],
+                  positions_per_sec=md.stats["positions_per_sec"],
+                  gather_nmiss=md.stats["gather_nmiss"],
+                  peak_mem_bytes=md.stats.get("peak_mem_bytes"),
+                  launches=launches_md["monotone_window_gather"])
+    meshed["cross_checks"] = gather_cross_checks(
+        ["solve", spec, "--engine", "dense", "--devices", "4", *extra],
+        "meshed dense", md.cells, md.stats["gather_nmiss"],
+        None if "cpu" in extra else launches_md["monotone_window_gather"],
+        lambda r: r.cells)
+    del md
+
+    # (g) The hybrid at K, one device then 4, then sym=1 at `small`.
+    hybrid = {}
+    launches_hy = {}
+    for label, more in (("devices1", []), ("devices4", ["--devices", "4"])):
+        kernels.reset_launches()
+        with env_set(GAMESMAN_FAKE_DEVICES=4):
+            h, report = cli_solve(["solve", spec, "--engine", "hybrid",
+                                   "--hybrid-cutover", str(cutover), *more,
+                                   *extra])
+        launches = dict(kernels.LAUNCHES)
+        if report_answer(report) != answer:
+            raise AssertionError(f"hybrid {label} {spec}: {report}")
+        if "cpu" not in extra and launches["monotone_window_gather"] <= 0:
+            raise AssertionError(f"hybrid {label} launched no gather")
+        checked = hybrid_check(h, result, samples, 15, f"hybrid {label}")
+        hybrid[label] = dict(hybrid_fields(h, launches), sampled=checked)
+        launches_hy[label] = launches["monotone_window_gather"]
+        if label == "devices1":
+            hybrid[label]["cross_checks"] = gather_cross_checks(
+                ["solve", spec, "--engine", "hybrid", "--hybrid-cutover",
+                 str(cutover), *more, *extra], f"hybrid {label}", h.cells,
+                h.stats["gather_nmiss"],
+                None if "cpu" in extra else launches["monotone_window_gather"],
+                lambda r: r.cells)
+        del h
+    sym = small + ",sym=1"
+    ref_sym, _ = cli_solve(["solve", sym, "--engine", "classic", *extra])
+    plain_small, _ = cli_solve(["solve", small, "--engine", "classic",
+                                *extra])
+    small_k = (2 * len(plain_small.levels) - 2) // 3
+    kernels.reset_launches()
+    h, report = cli_solve(["solve", sym, "--engine", "hybrid",
+                           "--hybrid-cutover", str(small_k), *extra])
+    launches = dict(kernels.LAUNCHES)
+    if (h.value, h.remoteness) != (ref_sym.value, ref_sym.remoteness):
+        raise AssertionError(f"hybrid {sym}: {report}")
+    for k, t in ref_sym.levels.items():
+        if k > small_k:
+            u = h.levels[k]
+            if not (np.array_equal(u.states, t.states)
+                    and np.array_equal(u.values, t.values)
+                    and np.array_equal(u.remoteness, t.remoteness)):
+                raise AssertionError(f"hybrid {sym} level {k} differs")
+    states, values, rems = sample_states(plain_small, samples // 4, 16)
+    for s, v, r in zip(states, values, rems):
+        if h.lookup(int(s)) != (int(v), int(r)):
+            raise AssertionError(f"hybrid {sym}: {int(s):#x}")
+    hybrid["sym_" + small] = dict(hybrid_fields(h, launches),
+                                  sampled=len(states))
+    launches_hy["sym"] = launches["monotone_window_gather"]
+    emit("sharded checkpoint, meshed dense, hybrid", spec=spec,
+         same_call=base, uninterrupted=uninterrupted_, resumed=resumed_,
+         reshard=reshard, export=export, world=world, meshed_dense=meshed,
+         hybrid=hybrid, secs=time.perf_counter() - t0)
+    return {"meshed_dense": launches_md["monotone_window_gather"],
+            "hybrid": launches_hy["devices1"],
+            "hybrid_devices4": launches_hy["devices4"],
+            "hybrid_sym": launches_hy["sym"]}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1656,18 +2082,23 @@ def main() -> int:
         v1, v2 = db_phase(classic_result, tmp)
         serve_phase(classic_result, tmp, v1, v2)
         sharded_phase(classic_result, tmp)
+        path_launches = reshard_hybrid_phase(
+            classic_result, dense_result, tmp, v1,
+            world_table=tmp / "sharded_one.npz")
         del classic_result
         checkpoint_dense_phase(dense_result, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    def row(name, source, replaces, launches, m):
+    def row(name, source, replaces, launches, m, by_path=None):
         r = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
              "max_abs_err": m["max_abs_err"], "ms": m["ms"],
              "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
              "bound_by": "bytes", "library_ms": m["library_ms"],
              "bound_share": m["bound_share"]}
+        if by_path:
+            r["launches_by_path"] = by_path
         if "shapes" in m:
             r["shapes"] = [{k: s[k] for k in (
                 "shape", "n", "m", "ms", "plain_ms", "library_ms",
@@ -1678,11 +2109,14 @@ def main() -> int:
     print(json.dumps({"kernels": [
         # Launches on the path that runs each kernel: the dense solve for
         # the gather (times at its largest launch's shape, then every
-        # shape), the microbench for the doubling.
+        # shape; per path: dense, meshed dense, hybrid), the microbench
+        # for the doubling.
         row("monotone_window_gather",
             "gamesmanmpi_tpu_torch/kernels/csrc/window_gather.cu",
             "gamesmanmpi_tpu/ops/pallas_gather.py:116",
-            dense_launches["monotone_window_gather"], k),
+            dense_launches["monotone_window_gather"], k,
+            dict(dense=dense_launches["monotone_window_gather"],
+                 **path_launches)),
         row("double_u32",
             "gamesmanmpi_tpu_torch/kernels/csrc/double_u32.cu",
             "tools/microbench2.py:210",

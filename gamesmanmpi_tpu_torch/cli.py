@@ -1,7 +1,8 @@
 """Command line of the torch port: `solve`, `export-db`, `query` and
 `serve`.
 
-    gamesman-solve-torch solve GAME [--engine auto|dense|classic]
+    gamesman-solve-torch solve GAME [--engine auto|dense|classic|hybrid]
+                         [--hybrid-cutover K]
                          [--device cuda|cpu] [--no-tables] [--paranoid]
                          [--table-out PATH] [--checkpoint-dir DIR]
                          [--query POS]... [--devices N]
@@ -24,11 +25,16 @@ the host oracle, or, when the module declares `level_of`, on the
 classic engine through compat.TensorizedModule (`--engine dense` exits
 2 there).
 
-Engines, routed as the reference routes one device: `dense` takes a
-Connect-4 board with sym=0 and no --paranoid/--table-out; `classic` (the
+Engines, routed as the reference routes them: `dense` takes a Connect-4
+board with sym=0 and no --paranoid/--table-out; `hybrid` (solve/
+hybrid.py: dense up to --hybrid-cutover K, level-BFS above) takes any
+Connect-4 board, sym=1 included, and no --checkpoint-dir/--paranoid/
+--table-out, and a cutover outside [0, cells) exits 2; `classic` (the
 level-BFS engine) takes every game; `auto` picks dense where it is
-eligible, the solve runs on the card and no --checkpoint-dir is given,
-classic otherwise. GameSpec ``.json`` files are not ported yet and exit 2.
+eligible, the solve runs on the card on one device and no
+--checkpoint-dir is given, classic otherwise. Compat modules refuse
+`dense` and `hybrid`. GameSpec ``.json`` files are not ported yet and
+exit 2.
 
 --devices N (N > 1) runs the hash-partitioned sharded engine
 (parallel/sharded.py) over N shards, for `auto` and `classic` and for a
@@ -39,15 +45,20 @@ compat module with `level_of`: in one process on the visible cards
 (parallel/launch.py starts one). In a world --table-out becomes
 rank-qualified (``T.rank<i>.npz``, every rank writes the same global
 table), GAMESMAN_COORD_ADDR defaults to the coordinator's port+1 (the
-retry consensus) and every metric carries a ``rank`` label. `--engine
-dense` and `--checkpoint-dir` with --devices > 1 are not ported yet and
-exit 2. A world that agrees to abort, or loses a peer, exits 124.
+retry consensus), rank 0 stamps and seals the checkpoint and every
+metric carries a ``rank`` label. `--engine dense --devices N` splits
+every dense level step's lanes over N shards in one process, and
+`--engine hybrid --devices N` adds the sharded BFS above the cutover;
+both are single-controller and exit 2 in a world. A world that agrees
+to abort, or loses a peer, exits 124 with its sealed prefix resumable.
 
 --checkpoint-dir seals every solved level into DIR (the reference's
-directory format: either package resumes the other's) and a rerun on the
-same DIR resumes from what is sealed. Only a checkpointed solve installs
-the preemption grace handlers: SIGTERM/SIGUSR1 stop it at the next level
-boundary with "preempted: ..." on stderr and exit 75. With --no-tables,
+directory format: either package resumes the other's, one device or
+sharded, at another shard count too unless GAMESMAN_RESHARD=0) and a
+rerun on the same DIR resumes from what is sealed. Only a checkpointed
+solve installs the preemption grace handlers: SIGTERM/SIGUSR1 stop it at
+the next level boundary with "preempted: ..." on stderr and exit 75 (in
+a world every rank stops at the same boundary). With --no-tables,
 --query answers from the directory's files. GAMESMAN_FAULTS arms fault
 points (resilience/faults.py): an injected kill exits 77, a torn seal 86.
 
@@ -97,10 +108,16 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("game", help="game spec, e.g. connect4:w=5,h=5, or a "
                    "path to a reference-style game module")
     s.add_argument(
-        "--engine", choices=("auto", "dense", "classic"), default="auto",
+        "--engine", choices=("auto", "dense", "classic", "hybrid"),
+        default="auto",
         help="'classic' = level-BFS engine (every game); 'dense' = "
         "class-partitioned perfect-indexing engine (Connect-4 family, "
-        "sym=0); 'auto' picks dense when eligible on the card")
+        "sym=0); 'hybrid' = dense below --hybrid-cutover, BFS above "
+        "(Connect-4 family); 'auto' picks dense when eligible on the card")
+    s.add_argument(
+        "--hybrid-cutover", type=int, default=None, metavar="K",
+        help="last dense level of --engine hybrid (default "
+        "GAMESMAN_HYBRID_CUTOVER, else 2/3 of the board's cells)")
     _device_arg(s, "the solve")
     s.add_argument(
         "--no-tables", action="store_true",
@@ -353,18 +370,6 @@ def solve_main(argv=None) -> tuple[int, Optional[object]]:
     return _solve(args, t0)
 
 
-def _not_ported_sharded(args) -> Optional[int]:
-    """Exit 2 for the multi-device paths of the next slice: neither runs
-    another engine silently."""
-    if args.devices > 1 and args.engine == "dense":
-        return _error("--engine dense with --devices > 1 (the meshed dense "
-                      "engine) is not ported yet")
-    if args.devices > 1 and args.checkpoint_dir:
-        return _error("--checkpoint-dir with --devices > 1 (sharded "
-                      "checkpoints) is not ported yet")
-    return None
-
-
 def _rank_path(path: str, rank: int) -> str:
     """``out.npz`` -> ``out.rank0.npz``: ranks never race onto one file."""
     import os
@@ -422,7 +427,7 @@ def _join_world(args, device) -> tuple[int, Optional[int]]:
     return world, None
 
 
-def _sharded_solver(game, args, device):
+def _sharded_solver(game, args, device, checkpointer):
     """The sharded engine over --devices shards -> (solver, None), or
     (None, exit code 2) when the shards do not fit the devices."""
     from gamesmanmpi_tpu_torch.parallel import ShardedSolver
@@ -430,9 +435,24 @@ def _sharded_solver(game, args, device):
     try:
         return ShardedSolver(game, num_shards=args.devices, device=device,
                              paranoid=args.paranoid,
-                             store_tables=not args.no_tables), None
+                             store_tables=not args.no_tables,
+                             checkpointer=checkpointer), None
     except ValueError as e:
         return None, _error(str(e))
+
+
+def _single_controller(args) -> Optional[int]:
+    """Exit 2 for --engine dense/hybrid in a world: their meshes span one
+    process's shards, as the reference's span one controller's devices."""
+    from gamesmanmpi_tpu_torch.parallel.mesh import process_identity
+
+    coordinator, world, _ = process_identity(
+        args.coordinator, args.num_processes, args.process_id)
+    if coordinator and world > 1:
+        return _error(f"--engine {args.engine} is single-controller: run "
+                      "it in one process (--devices N shards it there), "
+                      "not in a world of processes")
+    return None
 
 
 def _solve(args, t0: float) -> tuple[int, Optional[object]]:
@@ -440,9 +460,6 @@ def _solve(args, t0: float) -> tuple[int, Optional[object]]:
 
     game, rc = _get_game(args.game)
     if game is None:
-        return rc, None
-    rc = _not_ported_sharded(args)
-    if rc is not None:
         return rc, None
     family_base = (isinstance(game, Connect4) and not game.sym
                    and not args.paranoid and not args.table_out)
@@ -455,6 +472,19 @@ def _solve(args, t0: float) -> tuple[int, Optional[object]]:
             "--engine dense needs a Connect-4-family game with sym=0 and "
             "no --paranoid/--table-out (those live in the classic "
             "engine)"), None
+    # The hybrid takes sym=1: its BFS region keeps the mirror reduction
+    # and its dense region runs a sym-free twin (solve/hybrid.py).
+    if args.engine == "hybrid" and not (
+            isinstance(game, Connect4) and not args.paranoid
+            and not args.table_out and not args.checkpoint_dir):
+        return _error(
+            "--engine hybrid needs a Connect-4-family game and no "
+            "--checkpoint-dir/--paranoid/--table-out (those live in the "
+            "classic engine)"), None
+    if args.engine in ("dense", "hybrid"):
+        rc = _single_controller(args)
+        if rc is not None:
+            return rc, None
     device, rc = _device(args.device)
     if device is None:
         return rc, None
@@ -463,18 +493,34 @@ def _solve(args, t0: float) -> tuple[int, Optional[object]]:
         return rc, None
 
     checkpointer = _checkpointer(args)
-    if args.devices > 1 or world > 1:
-        solver, rc = _sharded_solver(game, args, device)
-        if solver is None:
-            return rc, None
+    if args.engine == "hybrid":
+        from gamesmanmpi_tpu_torch.solve.hybrid import HybridSolver
+
+        try:
+            solver = HybridSolver(game, cutover=args.hybrid_cutover,
+                                  store_tables=not args.no_tables,
+                                  device=device, devices=args.devices)
+        except ValueError as e:  # a bad cutover or --devices
+            return _error(str(e)), None
     # Same platform policy as the reference: the dense engine is the
-    # accelerator's pick; on the CPU, auto runs the classic engine.
-    elif args.engine == "dense" or (args.engine == "auto" and dense_eligible
-                                    and device.type == "cuda"):
+    # accelerator's pick on one device; on the CPU, and with --devices N
+    # (the sharded BFS shards memory, the meshed dense engine does not),
+    # auto runs the classic or sharded engine.
+    elif args.engine == "dense" or (
+            args.engine == "auto" and dense_eligible
+            and device.type == "cuda" and args.devices == 1 and world == 1):
         from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
 
-        solver = DenseSolver(game, store_tables=not args.no_tables,
-                             device=device, checkpointer=checkpointer)
+        try:
+            solver = DenseSolver(game, store_tables=not args.no_tables,
+                                 device=device, checkpointer=checkpointer,
+                                 devices=args.devices)
+        except ValueError as e:  # --devices past the visible devices
+            return _error(str(e)), None
+    elif args.devices > 1 or world > 1:
+        solver, rc = _sharded_solver(game, args, device, checkpointer)
+        if solver is None:
+            return rc, None
     else:
         from gamesmanmpi_tpu_torch.solve.engine import Solver
 
@@ -549,12 +595,9 @@ def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
         solve_module_tensorized,
     )
 
-    if args.engine == "dense":
-        return _error("--engine dense applies to the built-in Connect-4 "
-                      "family, not compat game modules"), None
-    rc = _not_ported_sharded(args)
-    if rc is not None:
-        return rc, None
+    if args.engine in ("dense", "hybrid"):
+        return _error(f"--engine {args.engine} applies to the built-in "
+                      "Connect-4 family, not compat game modules"), None
     try:
         module = load_game_module(args.game)
     except (AttributeError, ImportError) as e:
@@ -578,9 +621,9 @@ def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
                   "engine", file=sys.stderr)
     if engine_capable:
         checkpointer = _checkpointer(args)
-        kwargs = ({"devices": max(args.devices, world)}
-                  if args.devices > 1 or world > 1
-                  else {"checkpointer": checkpointer})
+        kwargs = {"checkpointer": checkpointer}
+        if args.devices > 1 or world > 1:
+            kwargs["devices"] = max(args.devices, world)
         return _run_solve(
             lambda: solve_module_tensorized(
                 module, device=device, paranoid=args.paranoid,

@@ -54,7 +54,6 @@ from gamesmanmpi_tpu_torch.db.format import (
     write_manifest,
 )
 from gamesmanmpi_tpu_torch.store import WriteTicket, default_store
-from gamesmanmpi_tpu_torch.utils.checkpoint import SHARDED_KEYS
 from gamesmanmpi_tpu_torch.utils.env import env_int
 
 #: Export pipeline depth: at most this many levels' arrays parked
@@ -382,21 +381,14 @@ def export_checkpoint(checkpointer, game, spec: str, directory, *,
                       compress: bool = False) -> dict:
     """Convert an existing --checkpoint-dir into a servable DB. -> manifest.
 
-    Consumes classic-engine checkpoints with global level files, sealed
-    by either package (utils/checkpoint.LevelCheckpointer reads both).
-    The reference's sharded sets are refused until the port has the
-    sharded engine. Dense checkpoints are refused: their flat per-index
-    cell arrays cover the encodable superset, including fabricated
-    classes the engine itself refuses to answer for.
+    Consumes classic-engine checkpoints, sealed by either package and
+    by either engine: a sharded level's shard files are merged into one
+    sorted table by ``load_level``, so the files equal a classic export's.
+    Dense checkpoints are refused: their flat per-index cell arrays cover
+    the encodable superset, including fabricated classes the engine
+    itself refuses to answer for.
     """
     manifest = checkpointer.load_manifest()
-    sharded = [k for k in SHARDED_KEYS if manifest.get(k)]
-    if sharded:
-        raise DbFormatError(
-            f"{checkpointer.dir}: sealed by the sharded engine "
-            f"({', '.join(sharded)}), which the torch port does not have "
-            "yet"
-        )
     if manifest.get("dense_levels"):
         raise DbFormatError(
             "dense checkpoint directories hold encodable-superset cells by "

@@ -60,10 +60,35 @@ so all ranks retry or abort a step together, and a peer lost inside a
 collective ends in :class:`CoordinatedAbort` (the CLI's exit 124) or, past
 ``GAMESMAN_COLLECTIVE_TIMEOUT``, the deadline's exit 124.
 
-Not ported here: checkpoints of a sharded solve (the next slice),
-window streaming (``GAMESMAN_WINDOW_BLOCK``), the route capacity and its
-spill loop (parallel/exchange.py says why), background compiles, status
-and logging.
+Checkpoint/resume (``checkpointer=``, utils/checkpoint.py), in the
+reference's directory format, so either package resumes the other's:
+
+* forward: each discovered level's shard rows and each expanded level's
+  edges (in the reference's padded layout, :func:`edges_to_reference`)
+  are saved as the forward finds them, and a per-shard frontier snapshot
+  supersedes the level files once the forward completes;
+* backward: each resolved level is saved per shard. A resume loads the
+  snapshot (or continues a partial forward from its deepest sealed
+  level), loads every sealed level instead of resolving it, and takes
+  sealed edges where their geometry matches; edges sealed at another
+  shard count fall back to the lookup join (``stats
+  ["edges_geometry_fallback_levels"]``). A tree sealed at another shard
+  count reshards on load (``stats["resharded_from"]``) unless
+  ``GAMESMAN_RESHARD=0``, which refuses it naming both geometries.
+* Payloads ride the block store's write-behind queue; a set is sealed
+  only after its payloads landed: one level later in one process (the
+  seal pipeline), at once after a barrier in a world, where rank 0 seals
+  and stamps the run epoch after every rank agreed on the directory
+  (``resume_digest``).
+
+Preemption grace in a world: at every level boundary each rank folds its
+grace flag into a consensus round (:meth:`ShardedSolver._check_preempt`),
+so the whole world stops at the same boundary and exits 75 together.
+
+Not ported here: the host-memory guard (``memguard``, with the campaign
+work), window streaming (``GAMESMAN_WINDOW_BLOCK``), the route capacity
+and its spill loop (parallel/exchange.py says why), background compiles,
+status and logging.
 """
 
 from __future__ import annotations
@@ -81,8 +106,13 @@ import torch
 import torch.distributed as dist
 
 from gamesmanmpi_tpu_torch.core.bitops import SENTINEL
-from gamesmanmpi_tpu_torch.core.codec import pack_cells, unpack_cells
-from gamesmanmpi_tpu_torch.core.hashing import owner_shard
+from gamesmanmpi_tpu_torch.core.codec import (
+    pack_cells,
+    pack_cells_np,
+    unpack_cells,
+    unpack_cells_np,
+)
+from gamesmanmpi_tpu_torch.core.hashing import owner_shard, owner_shard_np
 from gamesmanmpi_tpu_torch.core.values import UNDECIDED
 from gamesmanmpi_tpu_torch.games.base import TensorGame
 from gamesmanmpi_tpu_torch.obs import default_registry
@@ -96,7 +126,7 @@ from gamesmanmpi_tpu_torch.ops.provenance import (
 )
 from gamesmanmpi_tpu_torch.parallel.exchange import all_gather, all_to_all
 from gamesmanmpi_tpu_torch.parallel.mesh import make_mesh
-from gamesmanmpi_tpu_torch.resilience import faults
+from gamesmanmpi_tpu_torch.resilience import faults, preempt
 from gamesmanmpi_tpu_torch.resilience.coordination import (
     ABORT,
     OK,
@@ -107,6 +137,8 @@ from gamesmanmpi_tpu_torch.resilience.coordination import (
 )
 from gamesmanmpi_tpu_torch.resilience.preempt import WATCHDOG_EXIT_CODE
 from gamesmanmpi_tpu_torch.resilience.retry import is_transient, retry_call
+from gamesmanmpi_tpu_torch.store import TORN_SEAL_ERRORS as TORN_NPZ_ERRORS
+from gamesmanmpi_tpu_torch.store import default_store
 from gamesmanmpi_tpu_torch.solve.engine import (
     LevelTable,
     SolveResult,
@@ -116,8 +148,66 @@ from gamesmanmpi_tpu_torch.solve.engine import (
     canonical_children,
     canonical_scalar,
 )
+from gamesmanmpi_tpu_torch.utils.checkpoint import (
+    CheckpointGeometryError,
+    reshard_enabled,
+    reshard_shard_stream,
+)
 from gamesmanmpi_tpu_torch.utils.device import resolve_device
 from gamesmanmpi_tpu_torch.utils.env import env_float, env_int, env_str
+
+#: The reference's smallest capacity bucket: a sealed edge level's slot
+#: map spans bucket_size(the level's widest shard) * max_moves lanes.
+MIN_BUCKET = 256
+
+
+def bucket_size(n: int, minimum: int = MIN_BUCKET) -> int:
+    """Smallest power of two >= max(n, minimum) (the reference's
+    ops/padding.bucket_size): the capacity its edge files are laid out
+    at."""
+    return 1 << int(max(n, minimum, 1) - 1).bit_length()
+
+
+def edges_to_reference(eidx, slot, crow, ecap: int, slot_len: int):
+    """One shard's edges, the port's layout -> the reference's.
+
+    Port: ``eidx`` [crow.sum()] int32 destination-major (each child's
+    index within its owner's next-level slice, in routing order), ``slot``
+    [n*M] int32 (where lane j's answer sits in that buffer, -1 for none).
+    Reference: ``eidx`` [S*ecap] with row d's ``crow[d]`` entries first,
+    ``slot`` [slot_len] as d*ecap + position; -1 pads both."""
+    crow = np.asarray(crow, dtype=np.int64)
+    S = crow.shape[0]
+    off = np.concatenate([[0], np.cumsum(crow)[:-1]])
+    dest = np.repeat(np.arange(S), crow)
+    pos = np.arange(dest.shape[0]) - off[dest]
+    e = np.full(S * ecap, -1, dtype=np.int32)
+    e[dest * ecap + pos] = np.asarray(eidx)
+    slot = np.asarray(slot)
+    sl = np.full(slot_len, -1, dtype=np.int32)
+    real = slot >= 0
+    j = slot[real]
+    head = sl[:slot.shape[0]]
+    head[real] = dest[j] * ecap + pos[j]
+    return e, sl
+
+
+def edges_from_reference(e, sl, lanes: int, S: int, ecap: int):
+    """Inverse of :func:`edges_to_reference` for one shard's ``lanes`` =
+    n*M child lanes -> (eidx, slot, crow [S] route counts). The counts
+    are the slot map's per-destination tallies: each routed child has
+    exactly one slot."""
+    sl = np.asarray(sl[:lanes], dtype=np.int64)
+    real = sl >= 0
+    d = np.where(real, sl // ecap, 0)
+    crow = np.bincount(d[real], minlength=S).astype(np.int64)
+    off = np.concatenate([[0], np.cumsum(crow)[:-1]])
+    slot = np.where(real, off[d] + sl % ecap, -1).astype(np.int32)
+    dest = np.repeat(np.arange(S), crow)
+    pos = np.arange(dest.shape[0]) - off[dest]
+    eidx = np.asarray(e)[dest * ecap + pos].astype(np.int32)
+    return eidx, slot, crow
+
 
 def route_by_owner(flat: torch.Tensor, S: int):
     """Order a flat int64 state array by owner shard for the exchange.
@@ -185,13 +275,32 @@ class ShardedSolver:
     ``torch.distributed`` world when init_distributed ran, else this
     process alone. paranoid=True checks each level's consistency counter
     and raises on a miss.
-    store_tables=False keeps only the root level's table.
+    store_tables=False keeps only the root level's table (the root
+    level's table is always kept: the hybrid's boundary join reads it,
+    the reference's ``materialize_root_table``). checkpointer: a
+    utils/checkpoint.LevelCheckpointer to seal into and resume from.
     """
 
     def __init__(self, game: TensorGame, *, num_shards: int = 1,
                  device="cuda", paranoid: bool = False,
-                 store_tables: bool = True):
+                 store_tables: bool = True, checkpointer=None):
         self.game = game
+        self.checkpointer = checkpointer
+        self.store = (checkpointer.store if checkpointer is not None
+                      else default_store())
+        #: deferred seals (one process, write-behind): (tickets, seal_fn)
+        self._pending_seals: List = []
+        #: checkpoint payload bytes handed over / landed on disk, and the
+        #: solve thread's seconds in checkpoint work (downloads, layout,
+        #: ticket waits, seals)
+        self.ckpt_bytes_raw = 0
+        self.ckpt_bytes_stored = 0
+        self.ckpt_save_secs = 0.0
+        #: elastic resume: the shard count the adopted tree was sealed at
+        #: (None: no reshard), and the levels whose sealed edges carry
+        #: another geometry and took the lookup backward
+        self.resharded_from = None
+        self.edges_geometry_fallback_levels = 0
         self.mesh = make_mesh(num_shards, resolve_device(device))
         self.S = self.mesh.S
         self.paranoid = paranoid
@@ -388,6 +497,283 @@ class ShardedSolver:
 
         return guard()
 
+    # -------------------------------------------------------- preemption
+
+    def _check_preempt(self, phase: str, level) -> None:
+        """Level-boundary preemption point. In one process, one flag
+        check. In a world every rank folds its grace flag into a
+        consensus round (ABORT from any preempted rank wins), so every
+        rank raises :class:`~..resilience.preempt.PreemptionRequested`
+        at the same boundary and the world exits 75 together. A failed
+        round is a CoordinatedAbort (exit 124), still resumable. The
+        reference's host-memory guard (``memguard.check``) runs here
+        too; it belongs to the campaign work and is not ported."""
+        flagged = preempt.requested()
+        if self.coord is not None:
+            decision = self._propose_step(
+                "preempt", level, 0, phase, ABORT if flagged else OK, None)
+            flagged = flagged or decision != OK
+        if flagged:
+            preempt.check(phase, level=level)
+            # A peer was preempted and this rank's own signal has not
+            # arrived: the same unwind, attributed to the peer.
+            raise preempt.PreemptionRequested(
+                f"peer rank preempted at {phase} boundary (level {level})")
+
+    # -------------------------------------------------------- checkpoint
+
+    def _shard_ranks(self) -> List[int]:
+        """shard -> owning rank: the rank set each seal records."""
+        per = self.S // self.num_processes
+        return [s // per for s in range(self.S)]
+
+    def _sync_processes(self, tag: str) -> None:
+        """Barrier across a world's processes before rank 0 seals a set
+        (rank 0 must not list shard files a peer is still writing). A
+        lost peer is a CoordinatedAbort; past the collective deadline the
+        rank exits 124."""
+        if self.num_processes <= 1:
+            return
+        try:
+            with self._collective_deadline(f"sync:{tag}", None):
+                dist.barrier(group=self.mesh.group)
+        except Exception as e:  # noqa: BLE001 - classified below
+            if _peer_lost(e):
+                raise CoordinatedAbort(
+                    f"peer lost at barrier {tag} (rank {self.rank}): "
+                    f"{str(e)[:200]}") from e
+            raise
+
+    def _run_seal(self, tickets, seal_fn) -> None:
+        t0 = time.perf_counter()
+        for t in tickets:
+            try:
+                raw, stored = t.result()
+            except BaseException:
+                # A payload that never landed: no later set may be sealed
+                # past the hole (resume reads a prefix contiguous from the
+                # root).
+                self._pending_seals.clear()
+                raise
+            self.ckpt_bytes_raw += int(raw)
+            self.ckpt_bytes_stored += int(stored)
+        waited = time.perf_counter() - t0
+        if waited > 1e-6:
+            self.store._note_wait(waited)
+        seal_fn()
+        self.ckpt_save_secs += time.perf_counter() - t0
+
+    def _seal_after_writes(self, tickets, seal_fn) -> None:
+        """Schedule one artifact set's seal after its payload writes: at
+        once in a world (the barrier is a collective) or without
+        write-behind, else deferred so a level's writes overlap the next
+        level's compute (depth 2: one level's edges and frontier)."""
+        if self.num_processes > 1 or not self.store.writebehind:
+            self._run_seal(tickets, seal_fn)
+            return
+        self._pending_seals.append((tickets, seal_fn))
+        while len(self._pending_seals) > 2:
+            self._run_seal(*self._pending_seals.pop(0))
+
+    def _flush_seals(self) -> None:
+        """Run every deferred seal (phase boundaries and the solve's
+        end)."""
+        while self._pending_seals:
+            self._run_seal(*self._pending_seals.pop(0))
+
+    @staticmethod
+    def _host(t) -> np.ndarray:
+        if isinstance(t, np.ndarray):
+            return t
+        if t.dtype == torch.uint32:
+            return t.view(torch.int32).cpu().numpy().view(np.uint32)
+        return t.cpu().numpy()
+
+    def _ckpt_forward_level(self, k: int, rows) -> None:
+        """Save one just-discovered level's local shard rows; seal the
+        set after its writes."""
+        ck = self.checkpointer
+        if ck is None:
+            return
+        t0 = time.perf_counter()
+        tickets = [ck.save_forward_level_shard(k, s, self._host(r))
+                   for s, r in zip(self.mesh.local, rows)]
+
+        def seal(k=k):
+            self._sync_processes(f"forward_level_{k}_shards_written")
+            if self.rank == 0:
+                ck.finish_forward_level(k, self.S, ranks=self._shard_ranks(),
+                                        drain=False)
+
+        self.ckpt_save_secs += time.perf_counter() - t0
+        self._seal_after_writes(tickets, seal)
+
+    def _ckpt_edges_level(self, k: int, rec: _SLevel) -> None:
+        """Save one expanded level's edges per local shard, in the
+        reference's layout (ecap = the widest route, slot length = the
+        reference's capacity bucket * max_moves), so either package's
+        backward reads them."""
+        ck = self.checkpointer
+        if ck is None:
+            return
+        t0 = time.perf_counter()
+        ecap = max(1, int(rec.C.max()))
+        slot_len = bucket_size(int(rec.counts.max())) * self.game.max_moves
+        tickets = []
+        for i, s in enumerate(self.mesh.local):
+            e, sl = edges_to_reference(self._host(rec.eidx[i]),
+                                       self._host(rec.slot[i]), rec.C[s],
+                                       ecap, slot_len)
+            tickets.append(ck.save_edges_shard(k, s, e, sl))
+
+        def seal(k=k):
+            self._sync_processes(f"edges_level_{k}_shards_written")
+            if self.rank == 0:
+                ck.finish_edges_level(k, self.S, ecap, slot_len,
+                                      ranks=self._shard_ranks(), drain=False)
+
+        self.ckpt_save_secs += time.perf_counter() - t0
+        self._seal_after_writes(tickets, seal)
+
+    def _checkpoint_frontier_shards(self, levels: Dict[int, _SLevel]):
+        """The per-shard frontier snapshot: one file per local shard with
+        its rows of every level; it supersedes the forward level files."""
+        ck = self.checkpointer
+        self._flush_seals()
+        t0 = time.perf_counter()
+        tickets = []
+        for i, s in enumerate(self.mesh.local):
+            pools = {k: (rec.host[i] if rec.host is not None
+                         else self._host(rec.dev[i]))
+                     for k, rec in levels.items()}
+            tickets.append(ck.save_frontier_shard(s, pools))
+        self.ckpt_save_secs += time.perf_counter() - t0
+        self._run_seal(tickets, lambda: None)
+        self._sync_processes("frontier_shards_written")
+        if self.rank == 0:
+            ck.finish_frontier_shards(self.S, drain=False)
+
+    def _checkpoint_level_shards(self, k: int, states, values, rems):
+        """Save one resolved level per local shard; seal after the
+        writes."""
+        ck = self.checkpointer
+        t0 = time.perf_counter()
+        tickets = []
+        for s, st, v, r in zip(self.mesh.local, states, values, rems):
+            tickets.append(ck.save_level_shard(
+                k, s, self._host(st), self._host(pack_cells(v, r))))
+
+        def seal(k=k):
+            self._sync_processes(f"level_{k}_shards_written")
+            if self.rank == 0:
+                ck.finish_level_shards(k, self.S, ranks=self._shard_ranks(),
+                                       drain=False)
+
+        self.ckpt_save_secs += time.perf_counter() - t0
+        self._seal_after_writes(tickets, seal)
+
+    def _hint_backward_level(self, k: int, rec: _SLevel, completed) -> None:
+        """Readahead for the next backward level: its sealed level files
+        on a resume, else its sealed edges. Advisory only."""
+        ck = self.checkpointer
+        manifest = ck.load_manifest()
+        if k in completed:
+            num = manifest.get("sharded_levels", {}).get(str(k))
+            if num:
+                ck.prefetch_level_shards(k, int(num), manifest)
+            else:
+                ck.prefetch_level(k)
+        elif self.use_edges and rec.eidx is None:
+            info = manifest.get("edge_levels", {}).get(str(k))
+            if info and info.get("shards") == self.S:
+                ck.prefetch_edges_level(k, self.S, manifest)
+
+    def _load_checkpointed_level(self, k: int, rec: _SLevel, states):
+        """A sealed level's (values, remoteness) per local shard, on the
+        devices, checked against the discovered frontier.
+
+        Every rank reads the whole sealed set, so a torn file is seen by
+        every rank of a world and the fallback is taken together. A set
+        sealed at another shard count reshards on load; a global level
+        file (a single-device run's) is partitioned by the owner hash.
+        Raises a TORN_NPZ_ERRORS member on a torn file (the caller
+        quarantines and recomputes) and SolverError on a mismatch (a
+        stale directory)."""
+        ck, S = self.checkpointer, self.S
+        manifest = ck.load_manifest()
+        sealed = manifest.get("sharded_levels", {}).get(str(k))
+        if sealed == S:
+            # Same geometry: each shard file is already this shard's
+            # sorted slice, so it loads as it is.
+            per = [ck.load_level_shard(k, s, manifest) for s in range(S)]
+        elif sealed is not None and reshard_enabled():
+            sealed = int(sealed)
+            ck.prefetch_level_shards(k, sealed, manifest)
+            per = reshard_shard_stream(
+                lambda s: ck.load_level_shard(k, s, manifest), sealed, S)
+        else:
+            table = ck.load_level(k)
+            owners = owner_shard_np(table.states, S)
+            cells = pack_cells_np(table.values, table.remoteness)
+            per = [(table.states[owners == s], cells[owners == s])
+                   for s in range(S)]
+        values, rems = [], []
+        for i, (s, dev) in enumerate(zip(self.mesh.local, self.mesh.devices)):
+            st, cells = per[s]
+            have = rec.host[i] if rec.host is not None else self._host(
+                states[i])
+            if st.shape != have.shape or not np.array_equal(st, have):
+                raise SolverError(
+                    f"checkpointed level {k} (shard {s}) does not match the "
+                    "discovered frontier — stale checkpoint directory?")
+            v, r = unpack_cells_np(cells)
+            values.append(torch.from_numpy(v).to(dev))
+            rems.append(torch.from_numpy(r.astype(np.int32)).to(dev))
+        return values, rems
+
+    def _load_edges(self, k: int, rec: _SLevel) -> bool:
+        """Level k's sealed edges into ``rec`` (eidx, slot, C), when they
+        were sealed at this shard count and capacity. Edges of another
+        shard count cannot re-map (they index per-owner slices that no
+        longer exist): the level takes the lookup join and is counted.
+        A torn file anywhere degrades the level on every rank together
+        (one control round carries each shard's verdict and its route
+        counts)."""
+        ck = self.checkpointer
+        manifest = ck.load_manifest()
+        info = manifest.get("edge_levels", {}).get(str(k))
+        if not info:
+            return False
+        if info.get("shards") != self.S:
+            self.edges_geometry_fallback_levels += 1
+            return False
+        M = self.game.max_moves
+        if info.get("slot_len") != bucket_size(int(rec.counts.max())) * M:
+            return False
+        ecap = int(info["ecap"])
+        eidx, slot, rows = [], [], []
+        for i, s in enumerate(self.mesh.local):
+            good = False
+            crow = np.zeros(self.S, dtype=np.int64)
+            try:
+                e, sl = ck.load_edges_shard(k, s, manifest)
+                good = (e.shape[0] == self.S * ecap
+                        and sl.shape[0] == int(info["slot_len"]))
+            except TORN_NPZ_ERRORS:
+                pass
+            if good:
+                ei, si, crow = edges_from_reference(
+                    e, sl, int(rec.counts[s]) * M, self.S, ecap)
+                eidx.append(torch.from_numpy(ei))
+                slot.append(torch.from_numpy(si))
+            rows.append(torch.from_numpy(np.concatenate(
+                [[int(good)], crow])).to(self.mesh.devices[i]))
+        ctl = self._control(rows)
+        if not ctl[:, 0].all():
+            return False
+        rec.eidx, rec.slot, rec.C = eidx, slot, ctl[:, 1:]
+        return True
+
     # ------------------------------------------------------- shard work
 
     def _control(self, rows: List[torch.Tensor]) -> np.ndarray:
@@ -419,11 +805,15 @@ class ShardedSolver:
         children, mask = canonical_children(g, states, prim == UNDECIDED)
         return children.reshape(-1), prim, mask
 
-    def _seed(self, init: int) -> List[torch.Tensor]:
-        """The root on its owner shard, empty slices elsewhere."""
-        root = torch.tensor([init], dtype=torch.int64)
-        owner = int(owner_shard(root, self.S)[0])
-        return [(root if s == owner else root[:0]).to(dev)
+    def _seed(self, init) -> List[torch.Tensor]:
+        """The starting states on their owner shards: one root, or a
+        whole frontier (the hybrid starts the BFS at its boundary level's
+        reachable set), sorted per shard."""
+        arr = np.atleast_1d(np.asarray(init, dtype=np.int64))
+        if arr.shape[0] > 1:
+            arr = np.sort(arr)
+        owners = owner_shard_np(arr, self.S)
+        return [torch.from_numpy(arr[owners == s]).to(dev)
                 for s, dev in zip(self.mesh.local, self.mesh.devices)]
 
     def _forward_step(self, frontier: List[torch.Tensor], k: int):
@@ -492,15 +882,40 @@ class ShardedSolver:
 
     # ------------------------------------------------------ forward
 
-    def _forward_fast(self, init: int, start: int) -> Dict[int, _SLevel]:
+    def _forward_fast(self, init, start: int,
+                      resume: Optional[Dict[int, list]] = None
+                      ) -> Dict[int, _SLevel]:
         """Device-resident forward for uniform_level_jump games: the
         routed, deduplicated children of level k are level k+1's
-        frontier, shard to shard."""
+        frontier, shard to shard. ``init``: the root, or a sorted
+        frontier array at level ``start``.
+
+        With a checkpointer each discovered level's shard rows and each
+        expanded level's edges are saved as they appear. ``resume`` is a
+        sealed forward prefix ({level: per-shard int64 arrays at this
+        shard count}): expansion continues from its deepest level, and
+        the earlier levels carry no edges (the backward joins them)."""
         levels: Dict[int, _SLevel] = {}
-        frontier, k, stored = self._seed(init), start, 0
+        if resume:
+            ks = sorted(resume)
+            if ks != list(range(start, ks[-1] + 1)):
+                raise SolverError(
+                    f"forward checkpoint levels {ks} are not contiguous "
+                    f"from the root level {start} — stale checkpoint "
+                    "directory?")
+            for kk in ks:
+                levels[kk] = self._host_level(resume[kk])
+            k = ks[-1]
+            frontier = self._states(levels[k])
+        else:
+            frontier, k = self._seed(init), start
+            self._ckpt_forward_level(k, frontier)
+        stored = 0
         while True:
             self.progress = {"phase": "forward", "level": k,
                              "rank": self.rank}
+            # Level boundary: level k's files are enqueued or sealed.
+            self._check_preempt("forward", k)
 
             def _step(frontier=frontier, k=k):
                 return self._forward_step(frontier, k)
@@ -508,7 +923,11 @@ class ShardedSolver:
             sizes, C, uniq, eidx, slot, _ = self._retry(
                 "sharded.forward", _step, level=k,
                 entry=lambda k=k: faults.fire("sharded.forward", level=k))
-            rec = levels[k] = _SLevel(sizes, frontier)
+            rec = levels.get(k)
+            if rec is None:
+                rec = levels[k] = _SLevel(sizes, frontier)
+            else:  # the resumed prefix's deepest level
+                rec.dev = frontier
             stored += _nbytes(frontier)
             if uniq is None:
                 break
@@ -524,9 +943,20 @@ class ShardedSolver:
                     rec.eidx = [e.cpu() for e in eidx]
                     rec.slot = [s.cpu() for s in slot]
                     self.edges_bytes_spilled += extra
+                self._ckpt_edges_level(k, rec)
             self._spill_if_over(rec, stored)
+            self._ckpt_forward_level(k + 1, uniq)
             frontier, k = uniq, k + 1
         return levels
+
+    def _host_level(self, per_shard) -> _SLevel:
+        """A level from host arrays of every shard (a loaded snapshot):
+        the global counts, this process's shard slices on the host."""
+        rec = _SLevel(np.array([a.shape[0] for a in per_shard],
+                               dtype=np.int64), None)
+        rec.host = [np.asarray(per_shard[s], dtype=np.int64)
+                    for s in self.mesh.local]
+        return rec
 
     def _spill_if_over(self, rec: _SLevel, stored: int) -> None:
         """Keep a level's states in host RAM once the device-store budget
@@ -551,6 +981,7 @@ class ShardedSolver:
             frontier = pools.pop(k)
             self.progress = {"phase": "forward", "level": k,
                              "rank": self.rank}
+            self._check_preempt("forward", k)
 
             def _step(frontier=frontier, k=k):
                 return self._forward_step(frontier, k)
@@ -721,31 +1152,59 @@ class ShardedSolver:
         return int(ctl[owner, 1]), int(ctl[owner, 2]), int(ctl[:, 3].sum())
 
     def _backward(self, levels: Dict[int, _SLevel], root: int, init: int):
-        g = self.game
+        g, ck = self.game, self.checkpointer
+        # The forward's seals must be visible before the sealed sets are
+        # read.
+        self._flush_seals()
+        completed = set(ck.completed_levels()) if ck is not None else set()
         resolved: Dict[int, LevelTable] = {}
         cache: Dict[int, list] = {}  # level -> per local shard triples
         answer = None
-        for k in sorted(levels, reverse=True):
+        order = sorted(levels, reverse=True)
+        for i, k in enumerate(order):
             rec = levels[k]
             self.progress = {"phase": "backward", "level": k,
                              "rank": self.rank}
+            self._check_preempt("backward", k)
+            if ck is not None and i + 1 < len(order):
+                self._hint_backward_level(order[i + 1], levels[order[i + 1]],
+                                          completed)
             states = self._states(rec)
-            edges = self.use_edges and rec.eidx is not None and (
-                k + 1) in cache
+            loaded = None
+            if k in completed:
+                try:
+                    loaded = self._load_checkpointed_level(k, rec, states)
+                except TORN_NPZ_ERRORS as e:
+                    # Torn or crc-mismatching: quarantine and recompute
+                    # (the frontier is known, the deeper window solved).
+                    ck.quarantine_and_log(k, e)
+            if loaded is not None:
+                values, rems = loaded
+                table = (self._materialize(rec, states, values, rems)
+                         if self.store_tables or k == root else None)
+            else:
+                if (ck is not None and self.use_edges and rec.eidx is None
+                        and (k + 1) in cache):
+                    self._load_edges(k, rec)
+                edges = self.use_edges and rec.eidx is not None and (
+                    k + 1) in cache
 
-            def _level(k=k, rec=rec, states=states):
-                return self._level_step(k, root, rec, states, cache)
+                def _level(k=k, rec=rec, states=states):
+                    return self._level_step(k, root, rec, states, cache)
 
-            values, rems, misses, checked, table = self._retry(
-                "sharded.backward", _level, level=k,
-                entry=lambda k=k: faults.fire("sharded.backward", level=k))
-            self.backward_edges_levels += int(edges)
-            if checked:
-                raise SolverError(
-                    f"level {k}: {checked} consistency failures (child "
-                    "lookups outside the solved window, or non-primitive "
-                    "positions with zero legal moves)")
-            self._misses.append(misses)
+                values, rems, misses, checked, table = self._retry(
+                    "sharded.backward", _level, level=k,
+                    entry=lambda k=k: faults.fire("sharded.backward",
+                                                  level=k))
+                self.backward_edges_levels += int(edges)
+                if checked:
+                    raise SolverError(
+                        f"level {k}: {checked} consistency failures (child "
+                        "lookups outside the solved window, or "
+                        "non-primitive positions with zero legal moves)")
+                self._misses.append(misses)
+                if ck is not None:
+                    self._checkpoint_level_shards(k, states, values, rems)
             if table is not None:
                 resolved[k] = table
             if k == root:
@@ -769,8 +1228,72 @@ class ShardedSolver:
         try:
             return self._solve_impl()
         finally:
+            # Deferred seals are safe on the error path too (their
+            # payloads are queued and waited on), and losing them would
+            # unseal intact levels. Never mask the primary failure.
+            try:
+                self._flush_seals()
+            except Exception:  # noqa: BLE001 - secondary failure only
+                pass
             if self.coord is not None:
                 self.coord.close()
+
+    def _resume_gate(self) -> None:
+        """Bind the directory, compare its sealed geometry with this run's
+        (a reshard is adopted, or refused under GAMESMAN_RESHARD=0), have
+        every rank of a world agree on it (``resume_digest``), then rank 0
+        stamps the run epoch."""
+        ck = self.checkpointer
+        ck.bind_game(self.game.name, self.game.state_dtype)
+        try:
+            geom = ck.check_resume_geometry(self.S, self.num_processes)
+        except CheckpointGeometryError as e:
+            raise SolverError(str(e)) from e
+        if geom["status"] == "reshard":
+            sealed = geom["sealed"]
+            self.resharded_from = (sealed["num_shards"]
+                                   or sealed["shard_counts"][-1])
+        if self.coord is not None:
+            self.coord.barrier(f"resume:{ck.resume_digest(self.S)}")
+        else:
+            self._sync_processes("resume")
+        if self.rank == 0:
+            ck.stamp_run(self.num_processes, self._shard_ranks())
+        if self.coord is not None:
+            self.coord.barrier("run_stamped")
+        else:
+            self._sync_processes("run_stamped")
+
+    def _discover(self, init: int, start: int) -> Dict[int, _SLevel]:
+        """The forward, or what the checkpoint holds of it: the per-shard
+        snapshot, else a global snapshot (a single-device run's), else a
+        partial forward continued from its deepest sealed level. A
+        forward run here seals its snapshot and drops its level files."""
+        ck = self.checkpointer
+        snap = ck.load_frontier_shards(self.S) if ck is not None else None
+        glob = ck.load_frontiers() if ck is not None and snap is None else None
+        if snap is not None:
+            return {k: self._host_level(arrs) for k, arrs in snap.items()}
+        if glob is not None:
+            S = self.S
+            levels = {}
+            for k, v in glob.items():
+                owners = owner_shard_np(v, S)
+                levels[k] = self._host_level([v[owners == s]
+                                              for s in range(S)])
+            return levels
+        if self.fast:
+            partial = (ck.load_forward_level_shards(self.S)
+                       if ck is not None else {})
+            levels = self._forward_fast(init, start, resume=partial or None)
+        else:
+            levels = self._forward_generic(init, start)
+        if ck is not None:
+            self._checkpoint_frontier_shards(levels)
+            self._sync_processes("forward_level_files_superseded")
+            if self.rank == 0:
+                ck.drop_forward_level_shards()
+        return levels
 
     def _solve_impl(self) -> SolveResult:
         g, mesh = self.game, self.mesh
@@ -782,12 +1305,15 @@ class ShardedSolver:
             torch.cuda.reset_peak_memory_stats(mesh.home)
         t0 = time.perf_counter()
         init, start = canonical_scalar(g, g.initial_state())
-        levels = (self._forward_fast(init, start) if self.fast
-                  else self._forward_generic(init, start))
+        store0 = self.store.stats()
+        if self.checkpointer is not None:
+            self._resume_gate()
+        levels = self._discover(init, start)
         t_forward = time.perf_counter() - t0
         num_positions = sum(int(rec.counts.sum()) for rec in levels.values())
         resolved, (value, remoteness, misses) = self._backward(
             levels, start, init)
+        self._flush_seals()
         t_total = time.perf_counter() - t0
         traffic = mesh.traffic
         self.progress = {"phase": "done", "rank": self.rank}
@@ -817,6 +1343,14 @@ class ShardedSolver:
             "exchange_secs": traffic.seconds(),
             "edges_bytes_spilled": self.edges_bytes_spilled,
             "states_bytes_spilled": self.states_bytes_spilled,
+            "resharded_from": self.resharded_from,
+            "edges_geometry_fallback_levels":
+                self.edges_geometry_fallback_levels,
+            "ckpt_bytes_raw": self.ckpt_bytes_raw,
+            "ckpt_bytes_stored": self.ckpt_bytes_stored,
+            "ckpt_save_secs": self.ckpt_save_secs,
+            "io_wait_secs": (self.store.stats()["io_wait_secs"]
+                             - store0["io_wait_secs"]),
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(mesh.home)
                                if cuda else None),
         }

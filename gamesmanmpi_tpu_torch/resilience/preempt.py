@@ -6,7 +6,10 @@ SIGTERM/SIGUSR1 -> stop at the next level boundary -> exit 75.
   takes no lock, since it runs on the main thread between bytecodes of
   the code it interrupted) and arm a one-shot grace deadline.
 * The engines call :func:`check` at every level boundary, where
-  everything before it is sealed.
+  everything before it is sealed. The sharded engine in a world first
+  folds every rank's flag into a consensus round
+  (parallel/sharded.ShardedSolver._check_preempt), so all ranks stop at
+  the same boundary.
 * :class:`PreemptionRequested` unwinds the solve, and the CLI exits
   :data:`GRACE_EXIT_CODE` (75, EX_TEMPFAIL: resumable).
 * A solve that never reaches a boundary within the grace window

@@ -1,5 +1,5 @@
 """Dense class-partitioned retrograde engine for the Connect-4 family
-(port of gamesmanmpi_tpu/solve/dense.py, single device).
+(port of gamesmanmpi_tpu/solve/dense.py), on one device or a mesh.
 
 Positions are indexed perfectly instead of discovered:
 
@@ -23,14 +23,30 @@ monotone fill so the flat child index vector is non-decreasing, and
 ops/window_gather.monotone_window_gather serves it — the CUDA kernel on
 the card, its plain version on the CPU. The kernel is exact, so the
 reference's per-call fallback gather is gone. ``gather_mode="plain"`` is
-the clipped torch index, kept as the yardstick.
+the clipped torch index, kept as the yardstick. ``GAMESMAN_DENSE_GATHER``
+picks it when the caller does not: unset or ``pallas`` is the window
+kernel, ``plain`` the plain gather; ``sorted`` is not ported.
 
 All tensors are int64 (bitboards, ranks, flat indices) or uint8 (cells);
 see core/bitops.py. The reference's TPU-only machinery is not carried
 over: the one-hot binomial select tree (the card indexes the [ncells+1, K]
 table directly), the relay run-ahead drain, background compiles. Not yet
-ported (ROADMAP): the mesh, the counts file, _rank_all_moves_fused and the
-sorted gather mode.
+ported (ROADMAP): the counts file, _rank_all_moves_fused and the sorted
+gather mode.
+
+**The mesh** (``devices=N``, parallel/mesh.Mesh in one process): every
+level step's [P, cblock] lanes are split over the N shards, each shard
+computing its slice on its device, and each level's cells are copied to
+every shard's device for the next level's gathers (the reference's
+``_replicate``). A slice is a whole number of window-gather kernel
+blocks, cut from the one-device layout: every kernel block stays inside
+one profile row and sees exactly the lanes it sees at ``devices=1``, so
+the cells and the summed ``nmiss`` equal the one-device run's. (The
+reference instead rounds cblock up to ``lcm(devices, PALLAS_BLOCK)`` and
+lets SPMD partition it; its Pallas gather falls back to the plain one
+there, unproven under auto-SPMD. Here each shard launches the kernel
+itself on its own slice, so there is nothing to fall back from.)
+Single-controller, as in the reference: the mesh spans one process.
 
 Checkpoint/resume (``checkpointer=``), as in the reference: the directory
 is bound to ``<game>:dense``, each level's flat cells are sealed as they
@@ -53,6 +69,7 @@ from gamesmanmpi_tpu_torch.games.connect4 import Connect4
 from gamesmanmpi_tpu_torch.ops.combine import combine_children
 from gamesmanmpi_tpu_torch.ops.window_gather import monotone_window_gather
 from gamesmanmpi_tpu_torch.utils.device import resolve_device
+from gamesmanmpi_tpu_torch.utils.env import env_opt
 
 
 def _profiles_for_level(width: int, height: int, level: int) -> np.ndarray:
@@ -587,6 +604,25 @@ _REACH_COUNTS: Dict[tuple, Dict[int, int]] = {}
 _TABLES: Dict[tuple, DenseTables] = {}
 
 
+def gather_mode_from_env() -> str:
+    """GAMESMAN_DENSE_GATHER, parsed strictly: unset or ``pallas`` (the
+    reference's name for its window kernel) -> "window", ``plain`` ->
+    "plain"; ``sorted`` (not ported) and anything else raise ValueError.
+    The port's default stays the window kernel, where the reference
+    defaults to plain."""
+    raw = env_opt("GAMESMAN_DENSE_GATHER")
+    if raw is None or raw == "pallas":
+        return "window"
+    if raw == "plain":
+        return "plain"
+    if raw == "sorted":
+        raise ValueError("GAMESMAN_DENSE_GATHER=sorted: the sorted gather "
+                         "mode is not ported; use 'pallas' (the window "
+                         "kernel) or 'plain'")
+    raise ValueError(f"GAMESMAN_DENSE_GATHER={raw!r}: expected 'pallas', "
+                     "'plain' or 'sorted'")
+
+
 def tables_for(width: int, height: int, connect: int = 4) -> DenseTables:
     """One shared DenseTables per board (its per-level constants memoize)."""
     key = (width, height, connect)
@@ -620,15 +656,17 @@ class DenseSolver:
 
     device: "cuda" (default) or "cpu"; a missing card raises
     DeviceUnavailable. gather_mode: "window" (the CUDA window-gather
-    kernel on the card) or "plain". The reachability sweep that counts
-    positions runs once per board per process. checkpointer: a
-    utils/checkpoint.LevelCheckpointer to seal levels into and resume
-    from.
+    kernel on the card) or "plain"; None reads GAMESMAN_DENSE_GATHER. The
+    reachability sweep that counts positions runs once per board per
+    process. checkpointer: a utils/checkpoint.LevelCheckpointer to seal
+    levels into and resume from. devices: shards of the mesh (module
+    docstring); more than the visible devices raises ValueError.
     """
 
     def __init__(self, game: Connect4, store_tables: bool = True,
                  block_elems: Optional[int] = None, device="cuda",
-                 gather_mode: str = "window", checkpointer=None):
+                 gather_mode: Optional[str] = None, checkpointer=None,
+                 devices: int = 1):
         if not isinstance(game, Connect4):
             raise TypeError("DenseSolver requires a Connect4-family game")
         if game.sym:
@@ -637,6 +675,8 @@ class DenseSolver:
                 "(symmetry only reduces memory, which dense tables "
                 "already cut to 1 byte/position)"
             )
+        if gather_mode is None:
+            gather_mode = gather_mode_from_env()
         if gather_mode not in ("window", "plain"):
             raise ValueError(f"gather_mode must be 'window' or 'plain', "
                              f"got {gather_mode!r}")
@@ -645,11 +685,26 @@ class DenseSolver:
         self.checkpointer = checkpointer
         self.device = resolve_device(device)
         self.gather_mode = gather_mode
+        self.devices = int(devices)
+        if self.devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
+        if self.devices > 1:
+            from gamesmanmpi_tpu_torch.parallel.mesh import make_mesh
+
+            self._mesh = make_mesh(self.devices, self.device)
+            if self._mesh.world > 1:
+                raise ValueError(
+                    "the meshed dense engine is single-controller: its "
+                    "mesh spans one process, not a world")
+            self._shard_devices = list(self._mesh.devices)
+        else:
+            self._mesh = None
+            self._shard_devices = [self.device]
         self.tables = tables_for(game.width, game.height, game.connect)
         self.block_elems = int(block_elems or DEFAULT_BLOCK_ELEMS)
         self._consts: dict = {}
-        self._binom = torch.as_tensor(self.tables.binom.astype(np.int64),
-                                      device=self.device)
+        self._binoms: dict = {}
+        self._binom = self._binom_on(self.device)
 
     @property
     def _board_key(self):
@@ -678,16 +733,56 @@ class DenseSolver:
             cblock = -(-cblock // WINDOW_BLOCK) * WINDOW_BLOCK
         return cblock, -(-C // cblock)
 
-    def _level_tensors(self, level: int, for_reach: bool) -> dict:
-        """Per-level constants on the device, cached on the solver."""
-        key = (level, for_reach)
+    def _binom_on(self, device) -> torch.Tensor:
+        """The [ncells+1, K] int64 binomial table on `device` (cached)."""
+        key = str(device)
+        if key not in self._binoms:
+            self._binoms[key] = torch.as_tensor(
+                self.tables.binom.astype(np.int64), device=device)
+        return self._binoms[key]
+
+    def _lane_slices(self, cblock: int, window: bool) -> list:
+        """Each shard's [lo, hi) lanes of a cblock-wide rank block: whole
+        kernel blocks of the one-device layout (WINDOW_BLOCK lanes when
+        cblock is a multiple of it, else the whole block) for the window
+        gather, single lanes otherwise, dealt out contiguously. A shard
+        may get none (a level narrower than the mesh)."""
+        N = self.devices
+        if window and cblock >= WINDOW_BLOCK:
+            unit = WINDOW_BLOCK
+        elif window:
+            unit = cblock
+        else:
+            unit = 1
+        ncol = cblock // unit
+        return [(i * ncol // N * unit, (i + 1) * ncol // N * unit)
+                for i in range(N)]
+
+    def _replicate(self, flat: torch.Tensor) -> list:
+        """A level's flat cells (or reach) on every shard's device: the
+        one communication of the meshed design (one copy per distinct
+        device; shards sharing a card share the tensor)."""
+        out, by_dev = [], {}
+        for dev in self._shard_devices:
+            key = str(dev)
+            if key not in by_dev:
+                by_dev[key] = flat.to(dev)
+            out.append(by_dev[key])
+        return out
+
+    def _level_tensors(self, level: int, for_reach: bool,
+                       device=None) -> dict:
+        """Per-level constants on `device` (default the solver's), cached
+        on the solver."""
+        device = self.device if device is None else torch.device(device)
+        key = (level, for_reach, str(device))
         if key in self._consts:
             return self._consts[key]
         c = self.tables.level_consts(level)
 
         def dev(a, dtype=torch.int64):
             return torch.as_tensor(
-                np.ascontiguousarray(a.astype(np.int64)), device=self.device
+                np.ascontiguousarray(a.astype(np.int64)), device=device
             ).to(dtype)
 
         def steps_first(a):  # [P, ..., ncells] -> [ncells, P, ...]
@@ -713,49 +808,76 @@ class DenseSolver:
 
     # -- reachability sweep -------------------------------------------------
 
+    def _run_level(self, L: int, builder, for_reach: bool, window: bool,
+                   other):
+        """One level's steps over its rank blocks and, on a mesh, each
+        block's lane slices shard by shard. `other`: the adjacent level's
+        flat array on every shard's device (the step's gather source).
+        -> ([P, C] level array on the home device, the per-step second
+        outputs summed on it: the reach count or the gather misses)."""
+        t = self.tables
+        C = t.class_size[L]
+        cblock, nblk = self._cblock(L)
+        slices = ([(0, cblock)] if self._mesh is None
+                  else self._lane_slices(cblock, window))
+        steps: dict = {}
+        blocks, total = [], None
+        for b in range(nblk):
+            parts = []
+            for (lo, hi), dev, src in zip(slices, self._shard_devices, other):
+                if hi == lo:
+                    continue
+                step = steps.get(hi - lo)
+                if step is None:
+                    step = steps[hi - lo] = builder(t, L, hi - lo)
+                out, extra = step(b * cblock + lo, src,
+                                  self._level_tensors(L, for_reach, dev),
+                                  self._binom_on(dev))
+                parts.append(out.to(self.device))
+                if extra is not None:
+                    extra = extra.to(self.device)
+                    total = extra if total is None else total + extra
+            blocks.append(parts[0] if len(parts) == 1
+                          else torch.cat(parts, dim=1))
+        cells = blocks[0] if nblk == 1 else torch.cat(blocks, dim=1)
+        return cells[:, :C].contiguous(), total
+
+    def _sweep_levels(self, last_level: int):
+        """The reach sweep 1..last_level -> (counts {0..last_level},
+        level last_level's flat reach [P*C] uint8 on the home device).
+        Shared by reachable_counts (the full sweep) and the hybrid (the
+        sweep to its boundary)."""
+        reach = torch.ones((1,), dtype=torch.uint8, device=self.device)
+        counts_dev: Dict[int, torch.Tensor] = {}
+        for L in range(1, last_level + 1):
+            level_reach, cnt = self._run_level(
+                L, build_reach_step, True, False, self._replicate(reach))
+            reach = level_reach.reshape(-1)
+            counts_dev[L] = cnt
+        counts = {0: 1}
+        counts.update({L: int(v) for L, v in counts_dev.items()})
+        return counts, reach
+
     def reachable_counts(self) -> Dict[int, int]:
         """Exact per-level reachable-position counts (cached per process)."""
         cached = _REACH_COUNTS.get(self._board_key)
         if cached is not None:
             return cached
-        t = self.tables
-        reach_flat = torch.ones((1,), dtype=torch.uint8, device=self.device)
-        counts_dev: Dict[int, torch.Tensor] = {}
-        for L in range(1, t.ncells + 1):
-            cblock, nblk = self._cblock(L)
-            step = build_reach_step(t, L, cblock)
-            consts = self._level_tensors(L, for_reach=True)
-            blocks, cnt = [], None
-            for b in range(nblk):
-                r_b, c_b = step(b * cblock, reach_flat, consts, self._binom)
-                blocks.append(r_b)
-                cnt = c_b if cnt is None else cnt + c_b
-            level_reach = blocks[0] if nblk == 1 else torch.cat(blocks, dim=1)
-            del blocks
-            C = t.class_size[L]
-            reach_flat = level_reach[:, :C].reshape(-1)
-            counts_dev[L] = cnt
-        counts = {0: 1}
-        counts.update({L: int(v) for L, v in counts_dev.items()})
+        counts, _ = self._sweep_levels(self.tables.ncells)
         _REACH_COUNTS[self._board_key] = counts
         return counts
 
     def _backward_level(self, L: int, child_flat):
         """One backward level: the deeper level's flat cells -> this
-        level's [P, C] cells, plus the gather misses (a tensor or None)."""
-        t = self.tables
-        C = t.class_size[L]
-        cblock, nblk = self._cblock(L)
-        step = build_dense_step(t, L, cblock, self.gather_mode)
-        consts = self._level_tensors(L, for_reach=False)
-        blocks, nmiss = [], None
-        for b in range(nblk):
-            cells_b, nm = step(b * cblock, child_flat, consts, self._binom)
-            blocks.append(cells_b)
-            if nm is not None:
-                nmiss = nm if nmiss is None else nmiss + nm
-        cells = blocks[0] if nblk == 1 else torch.cat(blocks, dim=1)
-        return cells[:, :C].contiguous(), nmiss
+        level's [P, C] cells, plus the gather misses summed over the
+        shards (a tensor or None)."""
+        mode = self.gather_mode
+
+        def builder(t, level, width):
+            return build_dense_step(t, level, width, mode)
+
+        return self._run_level(L, builder, False, mode == "window",
+                               self._replicate(child_flat))
 
     # -- the solve ----------------------------------------------------------
 
@@ -880,7 +1002,7 @@ class DenseSolver:
             "engine": "dense",
             "gather_mode": self.gather_mode,
             "device": str(self.device),
-            "devices": 1,
+            "devices": self.devices,
             "positions": positions,
             "encodable_positions": encodable_total,
             "levels": nc + 1,

@@ -396,10 +396,12 @@ class Solver:
 
     # ---------------------------------------------------------- fast path
 
-    def _forward_fast(self, init: int, start: int,
+    def _forward_fast(self, init, start: int,
                       resume: Optional[Dict[int, np.ndarray]] = None
                       ) -> Dict[int, _Level]:
         """Device-resident forward sweep for uniform_level_jump games.
+        ``init``: the root state, or a sorted frontier array at level
+        ``start`` (the hybrid starts the BFS at its boundary level).
 
         With a checkpointer each level's frontier is sealed the moment its
         count is known (its host copy is kept for the backward). `resume`
@@ -421,8 +423,9 @@ class Solver:
             levels[k].dev = frontier
         else:
             k = start
-            frontier = torch.tensor([init], dtype=torch.int64, device=dev)
-            levels[k] = _Level(1, dev=frontier)
+            frontier = torch.from_numpy(np.atleast_1d(
+                np.asarray(init, dtype=np.int64))).to(dev)
+            levels[k] = _Level(frontier.numel(), dev=frontier)
             if ckpt is not None:
                 ckpt.save_frontier_level(k, levels[k].host_states())
         stored = frontier.numel() * 8

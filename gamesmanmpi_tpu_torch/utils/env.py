@@ -29,6 +29,19 @@ def env_int(name: str, default: int) -> int:
         return default
 
 
+def env_int_strict(name: str, default: int) -> int:
+    """Integer knob that fails fast: a malformed value raises ValueError
+    naming it (where a silent default would run the wrong
+    configuration)."""
+    raw = os.environ.get(name)
+    if not raw:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not an integer") from None
+
+
 def env_float(name: str, default: float) -> float:
     """Numeric knob; a malformed value warns and gives the default."""
     raw = os.environ.get(name, str(default))

@@ -375,13 +375,30 @@ def test_stale_and_foreign_directories_are_refused(tmp_path):
     with pytest.raises(SolverError, match="stale checkpoint"):
         Solver(get_game("tictactoe"), device="cpu",
                checkpointer=LevelCheckpointer(d)).solve()
-    # A directory the reference's sharded engine sealed.
-    m = json.loads((d / "manifest.json").read_text())
-    m["sharded_levels"] = {"3": 4}
-    (d / "manifest.json").write_text(json.dumps(m))
-    with pytest.raises(RuntimeError, match="sharded engine"):
+    # A directory the sharded engine sealed is no longer refused: like
+    # the reference, the one-device engine reads its shard sets, and a
+    # sharded level whose files are missing is quarantined and recomputed.
+    full = Solver(get_game("tictactoe"), device="cpu").solve()
+    for name, solver in (("port", None), ("jax", "jax")):
+        d2 = tmp_path / f"sharded_{name}"
         Solver(get_game("tictactoe"), device="cpu",
-               checkpointer=LevelCheckpointer(d)).solve()
+               checkpointer=LevelCheckpointer(d2)).solve()
+        m = json.loads((d2 / "manifest.json").read_text())
+        m["levels"] = [k for k in m["levels"] if k != 3]
+        m["sharded_levels"] = {"3": 4}
+        (d2 / "manifest.json").write_text(json.dumps(m))
+        (d2 / "level_0003.npz").unlink()
+        if solver is None:
+            got = Solver(get_game("tictactoe"), device="cpu",
+                         checkpointer=LevelCheckpointer(d2)).solve()
+            for k, t in full.levels.items():
+                np.testing.assert_array_equal(got.levels[k].values,
+                                              t.values)
+        else:
+            JaxSolver(jax_get_game("tictactoe"),
+                      checkpointer=JaxCkpt(d2)).solve()
+        m = json.loads((d2 / "manifest.json").read_text())
+        assert m.get("sharded_levels") == {} and 3 in m["levels"], name
 
 
 def test_state_files_never_hold_the_sentinel(tmp_path):

@@ -286,3 +286,69 @@ def test_gloo_world_on_card_matches_cpu_world(tmp_path):
                 tables[dev, rank] = {f: z[f].tobytes() for f in z.files}
     assert (tables["cuda", 0] == tables["cuda", 1] == tables["cpu", 0]
             == tables["cpu", 1])
+
+
+def test_sharded_checkpoint_on_card_resumes_and_reshards(tmp_path,
+                                                         monkeypatch):
+    """A sharded solve on the card killed mid-backward seals what the same
+    solve seals on the CPU; the card resumes it at 4 shards (edges read
+    back from the files) and at 2 (resharded), to the CPU's tables."""
+    from gamesmanmpi_tpu_torch.parallel import ShardedSolver
+    from gamesmanmpi_tpu_torch.resilience import faults
+
+    _need_card()
+    monkeypatch.setenv("GAMESMAN_FAKE_DEVICES", "4")
+    g = get_game("connect4:w=4,h=4")
+    for where in ("cuda", "cpu"):
+        faults.configure("sharded.backward:fatal:4")
+        with pytest.raises(faults.FatalFault):
+            ShardedSolver(g, num_shards=4, device=where,
+                          checkpointer=LevelCheckpointer(tmp_path / where)
+                          ).solve()
+        faults.clear()
+    card, cpu = _npz_members(tmp_path / "cuda"), _npz_members(tmp_path / "cpu")
+    assert sorted(card) == sorted(cpu) and card
+    for name, members in cpu.items():
+        for k, a in members.items():
+            np.testing.assert_array_equal(card[name][k], a, err_msg=name)
+    want = Solver(g, device="cpu").solve()
+    import shutil
+
+    shutil.copytree(tmp_path / "cuda", tmp_path / "two")
+    for d, S in ((tmp_path / "cuda", 4), (tmp_path / "two", 2)):
+        got = ShardedSolver(g, num_shards=S,
+                            checkpointer=LevelCheckpointer(d)).solve()
+        assert got.stats["resharded_from"] == (None if S == 4 else 4)
+        assert (got.stats["backward_edges_levels"] > 0) == (S == 4)
+        for k, t in want.levels.items():
+            for field in ("states", "values", "remoteness"):
+                np.testing.assert_array_equal(getattr(got.levels[k], field),
+                                              getattr(t, field))
+
+
+@pytest.mark.parametrize("devices", [1, 4])
+def test_meshed_dense_and_hybrid_on_card_launch_the_gather(devices,
+                                                           monkeypatch):
+    """The meshed dense engine and the hybrid's dense region launch the
+    window kernel on the card, with the CPU's cells and nmiss."""
+    from gamesmanmpi_tpu_torch.solve.hybrid import HybridSolver
+
+    _need_card()
+    monkeypatch.setenv("GAMESMAN_FAKE_DEVICES", "4")
+    g = get_game("connect4:w=4,h=4")
+    cpu = DenseSolver(g, device="cpu", block_elems=1 << 14).solve()
+    before = kernels.LAUNCHES["monotone_window_gather"]
+    card = DenseSolver(g, block_elems=1 << 14, devices=devices).solve()
+    assert kernels.LAUNCHES["monotone_window_gather"] > before
+    assert card.stats["gather_nmiss_per_level"] == cpu.stats[
+        "gather_nmiss_per_level"]
+    for L, cells in cpu.cells.items():
+        np.testing.assert_array_equal(card.cells[L], cells)
+    hy_cpu = HybridSolver(g, cutover=10, device="cpu").solve()
+    before = kernels.LAUNCHES["monotone_window_gather"]
+    hy = HybridSolver(g, cutover=10, devices=devices).solve()
+    assert kernels.LAUNCHES["monotone_window_gather"] > before
+    assert (hy.value, hy.remoteness, hy.num_positions) == (
+        hy_cpu.value, hy_cpu.remoteness, hy_cpu.num_positions)
+    for L, cells in hy_cpu.cells.items():
+        np.testing.assert_array_equal(hy.cells[L], cells)

@@ -28,6 +28,11 @@ from gamesmanmpi_tpu_torch.ops.combine import combine_children
 from gamesmanmpi_tpu_torch.solve import dense
 from gamesmanmpi_tpu_torch.utils.device import DeviceUnavailable
 
+# One intra-op thread: the suite runs in parallel worker processes, and a
+# torch pool as wide as the machine in each of them oversubscribes the
+# cores (a 2 s meshed dense solve took 80-105 s under six workers).
+torch.set_num_threads(1)
+
 SMALL = ["connect4:w=3,h=3,connect=3", "connect4:w=3,h=4,connect=3"]
 
 _JAX_SOLVES = {}
@@ -304,3 +309,68 @@ def test_rejects_sym_bad_mode_and_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailable):
         dense.DenseSolver(get_game(SMALL[0]))  # default device: the card
+
+
+# ------------------------------------------------------------- the mesh
+
+
+@pytest.mark.parametrize("devices", [2, 3, 4])
+def test_meshed_dense_matches_one_device_and_reference(devices):
+    """devices=N splits each level step's lanes over N shards by whole
+    kernel blocks: the cells are the one-device run's and the
+    reference's, byte for byte, and the window gather's misses summed
+    over the shards equal the one-device count, level by level."""
+    spec = SMALL[1]
+    got = dense.DenseSolver(get_game(spec), device="cpu",
+                            devices=devices).solve()
+    _assert_same_solve(got, jax_solve(spec))
+    assert got.stats["devices"] == devices
+    wide = "connect4:w=5,h=3"  # blocks of 4,096 lanes: 140,251 misses
+    one = dense.DenseSolver(get_game(wide), device="cpu",
+                            block_elems=1 << 12).solve()
+    mesh = dense.DenseSolver(get_game(wide), device="cpu",
+                             block_elems=1 << 12, devices=devices).solve()
+    assert one.stats["gather_nmiss"] > 0
+    assert (mesh.stats["gather_nmiss_per_level"]
+            == one.stats["gather_nmiss_per_level"])
+    for L, cells in one.cells.items():
+        np.testing.assert_array_equal(mesh.cells[L], cells, err_msg=L)
+
+
+def test_lane_slices_are_whole_kernel_blocks():
+    s = dense.DenseSolver(get_game(SMALL[0]), device="cpu", devices=3)
+    W = dense.WINDOW_BLOCK
+    for cblock, window in ((5 * W, True), (W // 2, True), (1000, False)):
+        slices = s._lane_slices(cblock, window)
+        assert slices[0][0] == 0 and slices[-1][1] == cblock
+        for (lo, hi), (lo2, _) in zip(slices, slices[1:]):
+            assert hi == lo2 and lo <= hi
+        if window:
+            unit = W if cblock >= W else cblock
+            assert all(lo % unit == 0 and hi % unit == 0
+                       for lo, hi in slices)
+    with pytest.raises(ValueError, match="devices"):
+        dense.DenseSolver(get_game(SMALL[0]), device="cpu", devices=0)
+
+
+@pytest.mark.parametrize("raw,want", [
+    (None, "window"), ("pallas", "window"), ("plain", "plain"),
+    ("sorted", "not ported"), ("bogus", "expected")])
+def test_dense_gather_env_parses_strictly(raw, want, monkeypatch):
+    if raw is None:
+        monkeypatch.delenv("GAMESMAN_DENSE_GATHER", raising=False)
+    else:
+        monkeypatch.setenv("GAMESMAN_DENSE_GATHER", raw)
+    if want in ("window", "plain"):
+        s = dense.DenseSolver(get_game(SMALL[0]), device="cpu")
+        assert s.gather_mode == want
+        # An explicit mode wins over the environment.
+        assert dense.DenseSolver(get_game(SMALL[0]), device="cpu",
+                                 gather_mode="plain").gather_mode == "plain"
+        return
+    with pytest.raises(ValueError, match=want):
+        dense.DenseSolver(get_game(SMALL[0]), device="cpu")
+    from gamesmanmpi_tpu_torch import cli
+
+    assert cli.main(["solve", SMALL[0], "--engine", "dense", "--device",
+                     "cpu"]) == 2

@@ -95,6 +95,12 @@ def test_import_and_cpu_solve_leave_jax_out():
         "import gamesmanmpi_tpu_torch.resilience.coordination\n"
         "assert main(['solve', 'nim:heaps=3-4-5', '--device', 'cpu',"
         " '--devices', '4']) == 0\n"
+        "import gamesmanmpi_tpu_torch.solve.hybrid\n"
+        "assert main(['solve', 'connect4:w=3,h=3,connect=3', '--device',"
+        " 'cpu', '--engine', 'hybrid', '--devices', '2']) == 0\n"
+        "assert main(['solve', 'connect4:w=3,h=3,connect=3', '--device',"
+        " 'cpu', '--devices', '2', '--checkpoint-dir', d + '/sharded'])"
+        " == 0\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'gamesmanmpi_tpu'))\n"
@@ -104,7 +110,8 @@ def test_import_and_cpu_solve_leave_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "positions: 694" in proc.stdout
+    # dense, dense checkpointed, hybrid, sharded checkpointed
+    assert proc.stdout.count("positions: 694") == 4
     assert proc.stdout.count("positions: 120") == 2  # classic, sharded
     assert "devices: 4" in proc.stdout
     assert "query 0x1: value=TIE remoteness=8" in proc.stdout

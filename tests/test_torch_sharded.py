@@ -34,6 +34,7 @@ from gamesmanmpi_tpu_torch.parallel import (
 )
 from gamesmanmpi_tpu_torch.resilience import faults
 from gamesmanmpi_tpu_torch.solve.engine import Solver, SolverError
+from gamesmanmpi_tpu_torch.utils.checkpoint import LevelCheckpointer
 
 SPECS = ["tictactoe", "subtract:total=21,moves=1-2-3", "nim:heaps=3-4-5",
          "chomp:w=3,h=3", "connect4:w=3,h=3,connect=3"]
@@ -231,8 +232,8 @@ def test_cli_devices_table_out_matches_reference(spec, answer, tmp_path):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--engine", "dense", "--devices", "2"], "not ported yet"),
-    (["--devices", "2", "--checkpoint-dir", "CKPT"], "not ported yet"),
+    (["--engine", "dense", "--devices", "2"], None),
+    (["--devices", "2", "--checkpoint-dir", "CKPT"], None),
     (["--devices", "2", "--coordinator", "127.0.0.1:1"],
      "requires --num-processes and --process-id"),
     (["--devices", "3", "--coordinator", "127.0.0.1:1", "--num-processes",
@@ -241,13 +242,36 @@ def test_cli_devices_table_out_matches_reference(spec, answer, tmp_path):
 def test_cli_refuses_unported_and_malformed_multi_device(argv, needle,
                                                          tmp_path, capsys,
                                                          monkeypatch):
+    """Malformed multi-device arguments exit 2 with a message and create
+    nothing; the two paths this case list once refused as not ported
+    (the meshed dense engine, sharded checkpoints) now run and give the
+    one-device tables."""
     monkeypatch.delenv("GAMESMAN_COORDINATOR", raising=False)
     monkeypatch.delenv("GAMESMAN_NUM_PROCESSES", raising=False)
     monkeypatch.delenv("GAMESMAN_PROCESS_ID", raising=False)
     argv = [str(tmp_path / "ck") if a == "CKPT" else a for a in argv]
-    assert cli.main(["solve", "connect4:w=3,h=3,connect=3", "--device",
-                     "cpu", *argv]) == 2
+    spec = "connect4:w=3,h=3,connect=3"
+    rc, result = cli.solve_main(["solve", spec, "--device", "cpu", *argv])
     captured = capsys.readouterr()
+    if needle is None:
+        assert rc == 0, captured.err
+        assert "devices: 2" in captured.out
+        if "--checkpoint-dir" in argv:
+            assert result.stats["engine"] == "sharded"
+            assert_same_tables(result, references(spec)[0])
+            assert LevelCheckpointer(tmp_path / "ck").sealed_geometry()[
+                "shard_counts"] == [2]
+        else:
+            from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
+
+            assert result.stats["engine"] == "dense"
+            assert result.stats["devices"] == 2
+            one = DenseSolver(get_game(spec), device="cpu").solve()
+            assert sorted(result.cells) == sorted(one.cells)
+            for L, cells in one.cells.items():
+                np.testing.assert_array_equal(result.cells[L], cells)
+        return
+    assert rc == 2
     assert needle in captured.err
     assert "positions:" not in captured.out
     assert not (tmp_path / "ck").exists()
