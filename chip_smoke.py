@@ -141,6 +141,37 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              GAMESMAN_DENSE_GATHER=plain; both runs' dense cells equal the
              counted run's byte for byte. Each run's seconds and peak
              memory beside the dense and classic numbers of the call.
+16. spec and instrumentation — (a) a Connect-4 5x5 GameSpec (written to
+             the run's temp dir) through `solve --spec`: the classic
+             engine (a compiled game is not of the Connect-4 class),
+             69,763,700 / TIE / 25, every level identical to phase 9's
+             tables; then the compiled and the hand-written classic solve
+             in turns (seconds and peak memory). (b) m,n,k 4x4x4 compiled
+             against the hand-written game on the card, tables identical;
+             examples/specs/gomoku_4x3x3.json and mnk_3x3x3_misere.json on
+             the card, identical to the CPU's tables and to the host
+             oracle over examples/ref_games/. (c) Two `solve` children
+             with --jsonl --trace-events --metrics-out --heartbeat-secs
+             0.5 --status-port 0 and GAMESMAN_STATUS_ADDR_FILE, /status
+             scraped while each runs: 5x5 (auto's dense pick, the window
+             gather launched) and (a)'s spec (classic): one record per
+             level and phase in the reference's names, positions/s from
+             the records equal to the report's, the trace Chrome JSON of
+             registered span names, gamesman_span_seconds in the metrics,
+             a heartbeat with cuda:0's bytes in use; each backward's
+             seconds beside the uninstrumented ones (phase 6, (a)). (d) A
+             5x4 classic child with GAMESMAN_FAULTS=engine.backward:
+             delay=60:3 and --watchdog-secs 2 exits 124 well inside the
+             delay, its flightrec_0.json naming the stalled level 18. (e)
+             Two 5x5 classic children, one with the host-memory guard at
+             the resident set CUDA's bring-up leaves plus 512 MiB (exits
+             1, "out of memory", an oom dump, the trip's RSS), one with
+             the guard off (solves); (d) and (e) run together. (f)
+             --profile-dir on the dense 4x4 solve: the Chrome trace names
+             the window-gather kernel. (g) `export-db --spec
+             connect4_4x4.json` on the card writes the CPU export's files
+             byte for byte; a card reader rebuilds the game from the
+             embedded spec, and it and `query` answer as the solve.
 
 Then the script's seconds, the kernels line, the `nvidia-smi`
 name/power-limit line, and last
@@ -2043,6 +2074,423 @@ def reshard_hybrid_phase(result, dense_result, tmp, v1, spec=C55,
             "hybrid_sym": launches_hy["sym"]}
 
 
+#: Phase 16's specs: Connect-4 5x5 and 4x4 m,n,k as GameSpec documents.
+SPEC_C55 = {"gamedsl": 1, "name": "connect4_5x5",
+            "board": {"width": 5, "height": 5}, "moves": {"family": "drop"},
+            "win": {"kind": "k_in_line", "k": 4}}
+SPEC_TTT444 = {"gamedsl": 1, "name": "tictactoe_4x4x4",
+               "board": {"width": 4, "height": 4},
+               "moves": {"family": "place"},
+               "win": {"kind": "k_in_line", "k": 4}}
+#: The span names docs/OBSERVABILITY.md registers for the solve.
+SOLVE_SPANS = {"forward", "dedup", "backward", "backward_edges",
+               "checkpoint", "db_export"}
+
+#: The CLI child of phase 16(e): the resident set once CUDA is up, then
+#: the host-memory guard armed at that plus the margin (argv[1] MiB, or
+#: "off"), then the solve.
+MEMGUARD_CHILD = """
+import json, os, sys
+import torch
+from gamesmanmpi_tpu_torch.cli import main
+from gamesmanmpi_tpu_torch.obs.heartbeat import rss_bytes
+if "cpu" not in sys.argv:
+    torch.zeros(1, device="cuda")
+rss = rss_bytes()
+if sys.argv[1] != "off":
+    os.environ["GAMESMAN_HOST_MEM_LIMIT_MB"] = str(
+        rss / 2**20 + float(sys.argv[1]))
+print(json.dumps({"rss_after_bringup": rss}), flush=True)
+sys.exit(main(sys.argv[2:]))
+"""
+
+
+def write_spec(tmp, doc):
+    path = tmp / f"{doc['name']}.json"
+    path.write_text(json.dumps(doc))
+    return str(path)
+
+
+def jsonl(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def solve_fields(r):
+    s = r.stats
+    return dict(secs_forward=s["secs_forward"],
+                secs_backward=s["secs_backward"],
+                peak_mem_bytes=s["peak_mem_bytes"],
+                positions_per_sec=s["positions_per_sec"])
+
+
+def spec_5x5(classic_result, tmp, doc=SPEC_C55, spec=C55,
+             answer=(69763700, "TIE", 25), extra=()):
+    """(a) The Connect-4 5x5 GameSpec on the classic engine (auto's pick
+    for a compiled game): phase 9's answer and tables, then the compiled
+    and the hand-written solve in turns."""
+    path = write_spec(tmp, doc)
+    runs = []
+    for turn, argv in enumerate((["solve", "--spec", path],
+                                 ["solve", spec, "--engine", "classic"],
+                                 ["solve", "--spec", path],
+                                 ["solve", spec, "--engine", "classic"])):
+        r, report = cli_solve([*argv, *extra])
+        if report_answer(report) != answer or r.stats[
+                "engine"] != "classic" or r.stats["misses"]:
+            raise AssertionError(f"{argv}: {report}")
+        if turn == 0:
+            if getattr(r.game, "spec_hash", None) is None:
+                raise AssertionError("--spec did not compile a GameSpec")
+            _same_tables(r, classic_result, "compiled 5x5 vs phase 9")
+        runs.append(dict(game="compiled" if turn % 2 == 0 else "hand",
+                         **solve_fields(r)))
+        del r
+    return path, runs
+
+
+def place_family(tmp, doc=SPEC_TTT444, spec="tictactoe:m=4,n=4,k=4",
+                 extra=()):
+    """(b) m,n,k 4x4x4 compiled against the hand-written game on the
+    card; gomoku and misere m,n,k on the card against the CPU and the
+    host oracle over the reference-style modules."""
+    from gamesmanmpi_tpu_torch.compat import load_game_module
+    from gamesmanmpi_tpu_torch.solve.oracle import oracle_solve
+
+    out = {}
+    compiled, _ = cli_solve(["solve", write_spec(tmp, doc), *extra])
+    hand, _ = cli_solve(["solve", spec, *extra])
+    _same_tables(compiled, hand, "tictactoe 4x4x4 compiled vs hand")
+    out["ttt444"] = dict(positions=compiled.num_positions,
+                         root=[compiled.value, compiled.remoteness],
+                         compiled=solve_fields(compiled),
+                         hand=solve_fields(hand))
+    del compiled, hand
+    for spec, module in (("gomoku_4x3x3.json", "gomoku_4x3x3.py"),
+                         ("mnk_3x3x3_misere.json", "mnk_333_misere.py")):
+        path = str(REPO / "examples" / "specs" / spec)
+        card, _ = cli_solve(["solve", "--spec", path, *extra])
+        cpu, _ = cli_solve(["solve", "--spec", path, "--device", "cpu"])
+        _same_tables(card, cpu, f"{spec} card vs CPU")
+        value, rem, table = oracle_solve(load_game_module(
+            str(REPO / "examples" / "ref_games" / module)))
+        if (card.value, card.remoteness) != (value, rem):
+            raise AssertionError(f"{spec}: root {(card.value, card.remoteness)}"
+                                 f" != oracle {(value, rem)}")
+        n = 0
+        for t in card.levels.values():
+            for st, v, r in zip(t.states.tolist(), t.values.tolist(),
+                                t.remoteness.tolist()):
+                if table[st] != (v, r):
+                    raise AssertionError(f"{spec} state {st:#x}: card "
+                                         f"{(v, r)} != oracle {table[st]}")
+                n += 1
+        out[spec] = dict(positions=card.num_positions, oracle_checked=n,
+                         root=[card.value, card.remoteness])
+    return out
+
+
+def instrumented_child(argv, tmp, tag):
+    """(c) One solve child with every instrumentation flag; /status is
+    scraped while it runs. -> (report lines, last-line record, records,
+    trace events, metrics text, /status snapshots, seconds)."""
+    from gamesmanmpi_tpu_torch.obs.status import fetch_status
+
+    d = tmp / tag
+    d.mkdir()
+    addr = d / "addr"
+    paths = {k: d / f"run.{k}" for k in ("jsonl", "trace", "metrics")}
+    t0 = time.perf_counter()
+    proc = child([*argv, "--jsonl", str(paths["jsonl"]), "--trace-events",
+                  str(paths["trace"]), "--metrics-out", str(paths["metrics"]),
+                  "--heartbeat-secs", "0.5", "--status-port", "0"],
+                 env={"GAMESMAN_STATUS_ADDR_FILE": str(addr)})
+    snaps = []
+    try:
+        while proc.poll() is None:
+            if addr.exists():
+                got = fetch_status(addr.read_text(), timeout=2)
+                if got is not None:
+                    snaps.append(got)
+            # 5 Hz: a 20 Hz scraper costs the dense backward 12-15%
+            # (tools/torch_instrumentation_ab.py).
+            time.sleep(0.2)
+        out, err = proc.communicate(timeout=600)
+    finally:
+        stop(proc)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"child {argv} exited {proc.returncode}:\n"
+                             f"{out[-2000:]}\n{err[-4000:]}")
+    lines = out.splitlines()
+    trace = json.loads(paths["trace"].read_text())["traceEvents"]
+    return (lines, json.loads(lines[-1]), jsonl(paths["jsonl"]), trace,
+            paths["metrics"].read_text(), snaps, secs)
+
+
+def check_instrumented(tag, lines, records, trace, metrics, snaps, want,
+                       spans, card):
+    """The records follow `want` ((phase, level) in order, heartbeats
+    aside); positions/s from the done record is the report's; the trace
+    is Chrome JSON of registered span names; the metrics hold the span
+    histogram; /status answered mid-solve. The heartbeats that carry
+    cuda:0's bytes in use are counted (the caller requires them where
+    the solve outlasts the interval)."""
+    got = [(r["phase"], r.get("level")) for r in records
+           if r["phase"] != "heartbeat"]
+    if got != want:
+        raise AssertionError(f"{tag}: records {got} != {want}")
+    done = records[-1]
+    rate = done["positions"] / done["secs_total"]
+    line = next(ln for ln in lines if ln.startswith("throughput:"))
+    if line != f"throughput: {rate:.0f} positions/sec":
+        raise AssertionError(f"{tag}: {line} != records' {rate:.0f}")
+    names = {e["name"] for e in trace}
+    if names != spans or any(e["ph"] != "X" for e in trace):
+        raise AssertionError(f"{tag}: trace events {names} != {spans}")
+    if "gamesman_span_seconds" not in metrics:
+        raise AssertionError(f"{tag}: no span histogram in --metrics-out")
+    beats = [r for r in records if r["phase"] == "heartbeat"]
+    on_card = [b for b in beats
+               if b.get("devices", {}).get("cuda:0", {}).get(
+                   "bytes_in_use", 0) > 0]
+    mid = [s for s in snaps if s.get("phase") in ("forward", "backward")]
+    if card and not mid:
+        raise AssertionError(f"{tag}: /status never answered mid-solve "
+                             f"({len(snaps)} snapshots)")
+    mid = mid or [{}]
+    return dict(records=len(records), heartbeats=len(beats),
+                heartbeats_on_card=len(on_card),
+                heartbeat_bytes_in_use=(on_card[-1]["devices"]["cuda:0"]
+                                        if on_card else None),
+                status_snapshots=len(snaps),
+                status_mid_solve={k: mid[-1].get(k) for k in (
+                    "engine", "phase", "level", "positions_solved",
+                    "levels_total", "levels_solved", "throughput_pps",
+                    "eta_secs")},
+                trace_events=len(trace), span_names=sorted(names),
+                secs_backward=done["secs_backward"],
+                positions_per_sec=done["positions_per_sec"])
+
+
+def watchdog_and_memguard(tmp, stalled=("connect4:w=5,h=4", 18), spec=C55,
+                          answer=(69763700, "TIE", 25), margin="512",
+                          extra=()):
+    """(d) A 5x4 classic child stalled at its third backward level under
+    --watchdog-secs 2, and (e) two 5x5 classic children, the host-memory
+    guard armed 512 MiB above the resident set CUDA's bring-up leaves,
+    and off: run together. -> their fields."""
+    wd_dir, mg_dir = tmp / "watchdog", tmp / "memguard"
+    wd_dir.mkdir()
+    mg_dir.mkdir()
+    mg_jsonl = mg_dir / "run.jsonl"
+    t0 = time.perf_counter()
+    wd = child(["solve", stalled[0], "--engine", "classic",
+                "--watchdog-secs", "2", *extra],
+               env={"GAMESMAN_FAULTS": "engine.backward:delay=60:3",
+                    "GAMESMAN_FLIGHTREC_DIR": str(wd_dir)})
+    procs = {"watchdog": wd}
+    for tag, limit, flags, env in (
+            ("guarded", margin, ["--jsonl", str(mg_jsonl)],
+             {"GAMESMAN_FLIGHTREC_DIR": str(mg_dir)}),
+            ("unguarded", "off", [], {})):
+        procs[tag] = subprocess.Popen(
+            [sys.executable, "-c", MEMGUARD_CHILD, limit, "solve", spec,
+             "--engine", "classic", *flags, *extra], cwd=REPO,
+            env=dict(os.environ, **env), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    res = {}
+    try:
+        for tag, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            res[tag] = (proc.returncode, out, err,
+                        time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            stop(proc)
+    rc, out, err, wd_secs = res["watchdog"]
+    if rc != 124 or wd_secs > 45 or "[watchdog] stall detected" not in err:
+        raise AssertionError(f"watchdog child rc {rc} after {wd_secs:.1f} s:"
+                             f"\n{err[-3000:]}")
+    dump = json.loads((wd_dir / "flightrec_0.json").read_text())
+    level = stalled[1]
+    spans = [s for s in dump["inflight_spans"] if s["span"] == "backward"]
+    if dump["reason"] != "watchdog_abort" or [
+            s["level"] for s in spans] != [level] or dump[
+            "last_completed"].get("backward") != level + 1:
+        raise AssertionError(f"watchdog dump: {dump['reason']}, "
+                             f"{spans}, {dump['last_completed']}")
+    stall = re.search(r"'stalled_secs': ([0-9.]+), 'deadline_secs': "
+                      r"([0-9.]+)", err)
+    wd_fields = dict(rc=rc, secs_to_exit=wd_secs,
+                     stalled_secs=float(stall.group(1)),
+                     deadline_secs=float(stall.group(2)),
+                     stalled_level=level, age_secs=spans[0]["age_secs"])
+    rc, out, err, g_secs = res["guarded"]
+    first = json.loads(out.splitlines()[0])
+    trips = [r for r in jsonl(mg_jsonl) if r["phase"] == "oom_guard"]
+    dump = json.loads((mg_dir / "flightrec_0.json").read_text())
+    if (rc != 1 or "out of memory: host RSS" not in err or not trips
+            or dump["reason"] != "oom" or "positions:" in out):
+        raise AssertionError(f"guarded child rc {rc}: {out[-1000:]}\n"
+                             f"{err[-3000:]}")
+    rc2, out2, err2, u_secs = res["unguarded"]
+    if rc2 != 0 or report_answer(out2.splitlines()) != answer:
+        raise AssertionError(f"unguarded child rc {rc2}: {out2[-1000:]}\n"
+                             f"{err2[-3000:]}")
+    mg_fields = dict(rss_after_bringup=first["rss_after_bringup"],
+                     trip=trips[0], secs=g_secs,
+                     unguarded_rss_after_bringup=json.loads(
+                         out2.splitlines()[0])["rss_after_bringup"],
+                     unguarded_secs=u_secs)
+    return wd_fields, mg_fields
+
+
+def profile_dense(tmp, extra=()):
+    """(f) --profile-dir on the dense 4x4 solve: the Chrome trace names
+    the window-gather kernel."""
+    from gamesmanmpi_tpu_torch import kernels
+
+    d = tmp / "profile"
+    kernels.reset_launches()
+    r, report = cli_solve(["solve", "connect4:w=4,h=4", "--engine", "dense",
+                           "--profile-dir", str(d), *extra])
+    launches = dict(kernels.LAUNCHES)["monotone_window_gather"]
+    if report_answer(report) != (161029, "TIE", 16) or (
+            launches <= 0 and not extra):
+        raise AssertionError(f"profiled 4x4: {report}, {launches} launches")
+    (trace,) = d.iterdir()
+    events = json.loads(trace.read_text())["traceEvents"]
+    gathers = [e for e in events if "window_gather_kernel" in e.get(
+        "name", "") and e.get("cat") == "kernel"]
+    if not gathers and not extra:
+        raise AssertionError("profiler trace names no window_gather_kernel")
+    return dict(trace_bytes=trace.stat().st_size, events=len(events),
+                gather_kernel_events=len(gathers), launches=launches,
+                kernel_name=gathers[0]["name"] if gathers else None,
+                kernel_us=sum(e.get("dur", 0) for e in gathers))
+
+
+def spec_export(tmp, extra=()):
+    """(g) export-db --spec connect4_4x4.json on the card: the CPU
+    export's files; a card reader rebuilds the game from the embedded
+    spec and answers, and `query` prints, the solve's table."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch.cli import main
+    from gamesmanmpi_tpu_torch.db import DbReader
+    from gamesmanmpi_tpu_torch.gamedsl import load_spec
+
+    spec = str(REPO / "examples" / "specs" / "connect4_4x4.json")
+    card_db, cpu_db = tmp / "spec_card.db", tmp / "spec_cpu.db"
+    t0 = time.perf_counter()
+    for d, flags in ((card_db, list(extra)), (cpu_db, ["--device", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(["export-db", "--spec", spec, "--out", str(d), *flags])
+        if rc != 0 or "positions: 161029" not in buf.getvalue():
+            raise AssertionError(f"export-db --spec {flags}: rc {rc}")
+    export_secs = time.perf_counter() - t0
+    if digests(card_db) != digests(cpu_db):
+        raise AssertionError("card and CPU --spec exports differ")
+    truth, _ = cli_solve(["solve", "--spec", spec, *extra])
+    rng = np.random.default_rng(16)
+    states = np.concatenate([t.states[rng.integers(0, t.states.shape[0],
+                                                   size=64)]
+                             for t in truth.levels.values()])
+    want = {int(s): truth.lookup(int(s)) for s in states}
+    device = "cpu" if extra else "cuda"
+    with DbReader(card_db, device=device) as reader:
+        if reader.game.spec_hash != load_spec(spec).spec_hash:
+            raise AssertionError("reader's game is not the embedded spec")
+        values, rem, found = reader.lookup(states.astype(np.uint32))
+    for s, v, r, f in zip(states.tolist(), values.tolist(), rem.tolist(),
+                          found.tolist()):
+        if not f or want[s] != (v, r):
+            raise AssertionError(f"reader {s:#x}: {(f, v, r)} != {want[s]}")
+    asked = [hex(int(s)) for s in states[:32]]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["query", str(card_db), *asked, *extra])
+    lines = buf.getvalue().splitlines()
+    for q, ln in zip(asked, lines):
+        v, r = want[int(q, 16)]
+        head = f"query {q}: value={('UNDECIDED', 'WIN', 'LOSE', 'TIE')[v]} "
+        if rc != 0 or not ln.startswith(head + f"remoteness={r}"):
+            raise AssertionError(f"query {q}: {ln!r}, want {(v, r)}")
+    return dict(files=len(digests(card_db)), export_secs=export_secs,
+                reader_checked=int(states.shape[0]), query_checked=len(asked))
+
+
+def spec_instrumentation_phase(classic_result, dense_result, tmp, spec=C55,
+                               doc=SPEC_C55, answer=(69763700, "TIE", 25),
+                               extra=(), stalled=("connect4:w=5,h=4", 18),
+                               place=(SPEC_TTT444, "tictactoe:m=4,n=4,k=4"),
+                               margin="512"):
+    """Phase 16: GameSpec games and the solve's instrumentation. The
+    keyword arguments shrink it for a rehearsal on the CPU (extra =
+    ("--device", "cpu"), where the card-only checks are skipped)."""
+    t0 = time.perf_counter()
+    tmp = tmp / "phase16"  # the earlier phases' names stay theirs
+    tmp.mkdir()
+    cells = doc["board"]["width"] * doc["board"]["height"]
+    fields = {}
+    tp = time.perf_counter()
+    path, runs = spec_5x5(classic_result, tmp, doc, spec, answer, extra)
+    fields["a_spec_5x5"] = dict(runs=runs, tables_equal_phase9=True,
+                                secs=time.perf_counter() - tp)
+    tp = time.perf_counter()
+    fields["b_place"] = dict(place_family(tmp, *place, extra=extra),
+                             secs=time.perf_counter() - tp)
+    tp = time.perf_counter()
+    engine = ["--engine", "dense"] if extra else []
+    dense = instrumented_child(["solve", spec, *engine, *extra], tmp,
+                               "dense")
+    lines, rec, records, trace, metrics, snaps, secs = dense
+    if rec["stats"]["engine"] != "dense" or (
+            rec["launches"]["monotone_window_gather"] <= 0 and not extra):
+        raise AssertionError(f"instrumented 5x5 did not run the gather: "
+                             f"{rec['launches']}")
+    got_d = check_instrumented(
+        "dense", lines[:-1], records, trace, metrics, snaps,
+        [("dense_backward", L) for L in range(cells, -1, -1)]
+        + [("done", None)], {"backward"}, card=not extra)
+    if not extra and not got_d["heartbeats_on_card"]:
+        raise AssertionError("the instrumented dense 5x5 child left no "
+                             "heartbeat with cuda:0 memory")
+    got_d.update(child_secs=secs, launches=rec["launches"],
+                 uninstrumented_secs_backward=dense_result.stats[
+                     "secs_backward"])
+    got_d["backward_ratio"] = (got_d["secs_backward"]
+                               / got_d["uninstrumented_secs_backward"])
+    lines, rec, records, trace, metrics, snaps, secs = instrumented_child(
+        ["solve", "--spec", path, *extra], tmp, "classic")
+    got_c = check_instrumented(
+        "classic", lines[:-1], records, trace, metrics, snaps,
+        [("forward", k) for k in range(cells)]
+        + [("backward", k) for k in range(cells, -1, -1)]
+        + [("done", None)], {"forward", "dedup", "backward"},
+        card=not extra)
+    compiled = [r["secs_backward"] for r in runs if r["game"] == "compiled"]
+    got_c.update(child_secs=secs, uninstrumented_secs_backward=compiled)
+    got_c["backward_ratio"] = got_c["secs_backward"] / min(compiled)
+    fields["c_instrumented"] = dict(dense=got_d, classic=got_c,
+                                    secs=time.perf_counter() - tp)
+    tp = time.perf_counter()
+    wd, mg = watchdog_and_memguard(tmp, stalled, spec, answer, margin,
+                                   extra)
+    fields["d_watchdog"] = wd
+    fields["e_memguard"] = dict(mg, secs=time.perf_counter() - tp)
+    tp = time.perf_counter()
+    fields["f_profile"] = dict(profile_dense(tmp, extra),
+                               secs=time.perf_counter() - tp)
+    tp = time.perf_counter()
+    fields["g_export"] = dict(spec_export(tmp, extra),
+                              secs=time.perf_counter() - tp)
+    emit("spec and instrumentation", **fields,
+         secs=time.perf_counter() - t0)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2085,6 +2533,7 @@ def main() -> int:
         path_launches = reshard_hybrid_phase(
             classic_result, dense_result, tmp, v1,
             world_table=tmp / "sharded_one.npz")
+        spec_instrumentation_phase(classic_result, dense_result, tmp)
         del classic_result
         checkpoint_dense_phase(dense_result, tmp)
     finally:

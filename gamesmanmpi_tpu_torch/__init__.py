@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of the gamesmanmpi_tpu strong solver.
 
 A second package beside the JAX reference (``gamesmanmpi_tpu``): the same
-games, value algebra, classic and dense Connect-4 engines and their
-checkpoint/resume (in the reference's directory format), the
-solved-position DB and its HTTP serving fleet (``serve/``), written
-against torch tensors, with the reference's Pallas kernels rewritten by
-hand in CUDA C++ for Hopper (``kernels/csrc``).
+games and game compiler (``gamedsl/``), value algebra, classic, dense,
+sharded and hybrid engines and their checkpoint/resume (in the
+reference's directory format), the solve's instrumentation (``obs/``)
+and watchdogs (``resilience/``), the solved-position DB and its HTTP
+serving fleet (``serve/``), written against torch tensors, with the
+reference's Pallas kernels rewritten by hand in CUDA C++ for Hopper
+(``kernels/csrc``).
 
 Rules this package keeps (ROADMAP.md, "the port"):
 

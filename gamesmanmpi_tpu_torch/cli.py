@@ -1,17 +1,23 @@
 """Command line of the torch port: `solve`, `export-db`, `query` and
 `serve`.
 
-    gamesman-solve-torch solve GAME [--engine auto|dense|classic|hybrid]
+    gamesman-solve-torch solve GAME|--spec SPEC.json
+                         [--engine auto|dense|classic|hybrid]
                          [--hybrid-cutover K]
                          [--device cuda|cpu] [--no-tables] [--paranoid]
                          [--table-out PATH] [--checkpoint-dir DIR]
                          [--query POS]... [--devices N]
                          [--coordinator HOST:PORT --num-processes P
                           --process-id I]
+                         [--jsonl F] [-v] [--trace-events F]
+                         [--metrics-out F] [--heartbeat-secs S]
+                         [--status-port P] [--watchdog-secs S]
+                         [--profile-dir DIR]
     gamesman-solve-torch solve path/to/module.py [--device cuda|cpu] ...
-    gamesman-solve-torch export-db GAME --out DIR [--from-checkpoint DIR]
-                         [--overwrite] [--compress] [--book-plies N]
-                         [--device cuda|cpu]
+    gamesman-solve-torch export-db GAME|--spec SPEC.json --out DIR
+                         [--from-checkpoint DIR] [--overwrite]
+                         [--compress] [--book-plies N]
+                         [--device cuda|cpu] [--jsonl F] [-v]
     gamesman-solve-torch query DB POS... [--device cuda|cpu]
     gamesman-solve-torch serve DB [--workers N] [--fleet-manifest F]
                          [--control-port P] [--port P] [--device cuda|cpu]
@@ -33,8 +39,23 @@ Connect-4 board, sym=1 included, and no --checkpoint-dir/--paranoid/
 level-BFS engine) takes every game; `auto` picks dense where it is
 eligible, the solve runs on the card on one device and no
 --checkpoint-dir is given, classic otherwise. Compat modules refuse
-`dense` and `hybrid`. GameSpec ``.json`` files are not ported yet and
-exit 2.
+`dense` and `hybrid`. A GameSpec ``.json`` file (as GAME or --spec,
+never both) is compiled by gamedsl; a compiled game is not of the
+Connect-4 class, so auto runs it on the classic (or sharded) engine and
+`dense`/`hybrid` refuse it, as the reference does.
+
+Instrumentation, the reference's flags: --jsonl (and -v on stderr)
+writes one record per level and phase (``forward``, ``backward``,
+``dense_backward``, ``done``, ...), --trace-events the spans as Chrome
+trace JSON, --metrics-out the registry's JSON snapshot at exit (a failed
+solve's too), --heartbeat-secs periodic progress/RSS/card-memory
+records, --status-port a live ``/status`` and ``/metrics`` endpoint,
+--watchdog-secs an exit 124 with the stacks and the flight recorder
+dumped when a level stalls, --profile-dir a torch.profiler Chrome trace.
+Every abnormal exit (preempted, out of memory, coordinated abort, crash)
+dumps the flight recorder into GAMESMAN_FLIGHTREC_DIR, which defaults to
+--checkpoint-dir. A host MemoryError (GAMESMAN_HOST_MEM_LIMIT_MB's guard
+at a level boundary) prints "out of memory: ..." and exits 1.
 
 --devices N (N > 1) runs the hash-partitioned sharded engine
 (parallel/sharded.py) over N shards, for `auto` and `classic` and for a
@@ -76,7 +97,8 @@ whose readers run on --device after the fork.
 
 Every command runs on the card unless --device cpu is given; without a
 card it exits 2 with a message. It returns 0 on success, 75 when
-preempted, and 2 on a usage error, an unknown or not-yet-ported game, an
+preempted, 1 out of host memory, 124 on a watchdog or coordinated
+abort, and 2 on a usage error, an unknown or not-yet-ported game, an
 engine the game cannot take, an invalid game module or database, a bad
 GAMESMAN_FAULTS, or a missing CUDA device.
 """
@@ -84,6 +106,8 @@ GAMESMAN_FAULTS, or a missing CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import pathlib
 import sys
 import time
@@ -98,6 +122,20 @@ def _device_arg(p, what: str) -> None:
         help=f"where {what} runs (default: the card)")
 
 
+def _spec_arg(p) -> None:
+    p.add_argument(
+        "--spec", default=None, metavar="SPEC.json",
+        help="declarative GameSpec file compiled by gamedsl "
+        "(docs/GAMEDSL.md) — equivalent to passing the path as GAME")
+
+
+def _records_args(p, what: str) -> None:
+    p.add_argument("--jsonl", default=None,
+                   help=f"write {what} to this JSONL file")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="print per-level progress lines to stderr")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gamesman-solve-torch",
@@ -105,8 +143,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
     s = sub.add_parser("solve", help="solve a game and print the root block")
-    s.add_argument("game", help="game spec, e.g. connect4:w=5,h=5, or a "
-                   "path to a reference-style game module")
+    s.add_argument("game", nargs="?", default=None,
+                   help="game spec, e.g. connect4:w=5,h=5, a path to a "
+                   "declarative GameSpec .json file (docs/GAMEDSL.md), or "
+                   "a path to a reference-style game module; omit when "
+                   "--spec is given")
+    _spec_arg(s)
     s.add_argument(
         "--engine", choices=("auto", "dense", "classic", "hybrid"),
         default="auto",
@@ -154,11 +196,47 @@ def build_parser() -> argparse.ArgumentParser:
         "--process-id", type=int, default=None,
         help="this process's rank in [0, num-processes) (env "
         "GAMESMAN_PROCESS_ID)")
+    _records_args(s, "per-level structured metrics")
+    s.add_argument(
+        "--profile-dir", default=None, metavar="DIR",
+        help="capture a torch.profiler trace of the solve (CPU and CUDA "
+        "activities, Chrome trace JSON) into this directory")
+    s.add_argument(
+        "--trace-events", default=None, metavar="OUT.json",
+        help="dump Chrome trace-event JSON of the solver's phase spans "
+        "(forward/dedup/backward/checkpoint/db_export) — loads in "
+        "chrome://tracing / Perfetto")
+    s.add_argument(
+        "--metrics-out", default=None, metavar="OUT.json",
+        help="dump the process metrics-registry snapshot (span "
+        "histograms, solve counters) as JSON when the solve finishes, "
+        "also when it fails")
+    s.add_argument(
+        "--heartbeat-secs", type=float, default=None, metavar="S",
+        help="emit a heartbeat record (phase/level progress, RSS, card "
+        "memory) every S seconds (env GAMESMAN_HEARTBEAT_SECS; 0 = off)")
+    s.add_argument(
+        "--status-port", type=int, default=None, metavar="PORT",
+        help="serve read-only live solve status on this port: GET /status "
+        "(phase/level, positions solved, per-level progress model with "
+        "ETA, fleet-merged per-rank view on rank 0) and GET /metrics "
+        "(Prometheus text). 0 = ephemeral port (published via "
+        "GAMESMAN_STATUS_ADDR_FILE); env GAMESMAN_STATUS_PORT; unset = off")
+    s.add_argument(
+        "--watchdog-secs", type=float, default=None, metavar="S",
+        help="abort (exit 124, diagnostics dumped, checkpoint prefix "
+        "intact) when a level stalls longer than max(S, "
+        "GAMESMAN_WATCHDOG_FACTOR x slowest recent level) (env "
+        "GAMESMAN_WATCHDOG_SECS; 0 = off)")
 
     e = sub.add_parser(
         "export-db",
         help="build an immutable DB from a fresh solve or a checkpoint dir")
-    e.add_argument("game", help="built-in game spec")
+    e.add_argument("game", nargs="?", default=None,
+                   help="built-in game spec, or a GameSpec .json file (the "
+                   "manifest embeds the canonical spec document, so the DB "
+                   "stays self-describing); omit when --spec is given")
+    _spec_arg(e)
     e.add_argument("--out", required=True, help="DB output directory")
     e.add_argument(
         "--from-checkpoint", default=None, metavar="DIR",
@@ -176,6 +254,7 @@ def build_parser() -> argparse.ArgumentParser:
         "of the initial position, scored through the finished DB "
         "(default from GAMESMAN_BOOK_PLIES; 0 = no book)")
     _device_arg(e, "the solve and the book")
+    _records_args(e, "per-level export metrics")
 
     q = sub.add_parser("query", help="probe a DB offline (no server)")
     q.add_argument("db", help="DB directory (from export-db)")
@@ -358,33 +437,93 @@ def solve_main(argv=None) -> tuple[int, Optional[object]]:
         faults.configure_from_env()
     except ValueError as e:
         return _error(f"GAMESMAN_FAULTS: {e}"), None
+    if args.command in ("solve", "export-db"):
+        rc = _game_or_spec(args)
+        if rc is not None:
+            return rc, None
     if args.command == "export-db":
         return _export_db(args, t0), None
     if args.command == "query":
         return _query(args), None
     if args.command == "serve":
         return _serve(args), None
-    if (pathlib.Path(args.game).is_file()
-            and not args.game.lower().endswith(".json")):
-        return _solve_module(args, t0)
-    return _solve(args, t0)
+    with _solve_env(args):
+        if (pathlib.Path(args.game).is_file()
+                and not args.game.lower().endswith(".json")):
+            return _solve_module(args, t0)
+        return _solve(args, t0)
+
+
+def _game_or_spec(args) -> Optional[int]:
+    """GAME or --spec, never both (the reference's rule and messages):
+    --spec becomes the game argument -> None, or exit code 2."""
+    if args.spec is not None:
+        if args.game is not None:
+            return _error("pass either GAME or --spec, not both")
+        args.game = args.spec
+    elif args.game is None:
+        return _error("a game is required: GAME or --spec SPEC.json")
+    return None
+
+
+@contextlib.contextmanager
+def _solve_env(args):
+    """Flags that spell env knobs the engines read at construction, set
+    for the solve and restored after it (a programmatic main() must not
+    leak them into the next call). Flight-recorder dumps land next to the
+    checkpoints unless GAMESMAN_FLIGHTREC_DIR says otherwise."""
+    import os
+
+    from gamesmanmpi_tpu_torch.utils.env import env_opt
+
+    flightrec_dir = (args.checkpoint_dir
+                     if args.checkpoint_dir
+                     and not env_opt("GAMESMAN_FLIGHTREC_DIR") else None)
+    saved = {}
+    for flag, env in ((args.heartbeat_secs, "GAMESMAN_HEARTBEAT_SECS"),
+                      (args.watchdog_secs, "GAMESMAN_WATCHDOG_SECS"),
+                      (args.status_port, "GAMESMAN_STATUS_PORT"),
+                      (flightrec_dir, "GAMESMAN_FLIGHTREC_DIR")):
+        if flag is not None:
+            saved[env] = env_opt(env)
+            os.environ[env] = str(flag)
+    try:
+        yield
+    finally:
+        for env, old in saved.items():
+            if old is None:
+                os.environ.pop(env, None)
+            else:
+                os.environ[env] = old
 
 
 def _rank_path(path: str, rank: int) -> str:
-    """``out.npz`` -> ``out.rank0.npz``: ranks never race onto one file."""
+    """``out.jsonl`` -> ``out.rank0.jsonl``: ranks never race onto one
+    file."""
     import os
 
     root, ext = os.path.splitext(path)
     return f"{root}.rank{rank}{ext}"
 
 
+def _world_rank() -> int:
+    """This process's rank in the process group (0 outside one)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
 def _join_world(args, device) -> tuple[int, Optional[int]]:
     """Join the process group when a coordinator is given (flag, then env
     GAMESMAN_COORDINATOR) -> (world size, None), or (0, exit code 2).
 
-    Then the reference's rank plumbing: a rank-qualified --table-out,
-    GAMESMAN_COORD_ADDR defaulting to the coordinator's host at port+1
-    (the retry consensus), and a ``rank`` label on every metric."""
+    Then the reference's rank plumbing: rank-qualified file artifacts
+    (--jsonl/--metrics-out/--trace-events/--table-out, so N processes
+    given one path never clobber it), GAMESMAN_COORD_ADDR defaulting to
+    the coordinator's host at port+1 (the retry consensus), and a
+    ``rank`` label on every metric."""
     import os
 
     from gamesmanmpi_tpu_torch.parallel.mesh import (
@@ -412,8 +551,10 @@ def _join_world(args, device) -> tuple[int, Optional[int]]:
           file=sys.stderr, flush=True)
     if world <= 1:
         return world, None
-    if args.table_out:
-        args.table_out = _rank_path(args.table_out, rank)
+    for field in ("jsonl", "metrics_out", "trace_events", "table_out"):
+        val = getattr(args, field, None)
+        if val:
+            setattr(args, field, _rank_path(val, rank))
     if not env_opt("GAMESMAN_COORD_ADDR"):
         host, _, port = coordinator.rpartition(":")
         try:
@@ -427,7 +568,7 @@ def _join_world(args, device) -> tuple[int, Optional[int]]:
     return world, None
 
 
-def _sharded_solver(game, args, device, checkpointer):
+def _sharded_solver(game, args, device, checkpointer, logger):
     """The sharded engine over --devices shards -> (solver, None), or
     (None, exit code 2) when the shards do not fit the devices."""
     from gamesmanmpi_tpu_torch.parallel import ShardedSolver
@@ -436,7 +577,8 @@ def _sharded_solver(game, args, device, checkpointer):
         return ShardedSolver(game, num_shards=args.devices, device=device,
                              paranoid=args.paranoid,
                              store_tables=not args.no_tables,
-                             checkpointer=checkpointer), None
+                             checkpointer=checkpointer,
+                             logger=logger), None
     except ValueError as e:
         return None, _error(str(e))
 
@@ -491,7 +633,19 @@ def _solve(args, t0: float) -> tuple[int, Optional[object]]:
     world, rc = _join_world(args, device)
     if rc is not None:
         return rc, None
+    logger = _solve_logger(args, world)
+    # The logger closes even when a solve aborts mid-level; the obs scope
+    # nests inside, so --trace-events and --metrics-out are written when
+    # the solve raises too.
+    with _logger_scope(logger), _obs_scope(args):
+        return _solve_with(game, args, t0, device, world, logger,
+                           dense_eligible)
 
+
+def _solve_with(game, args, t0: float, device, world: int, logger,
+                dense_eligible: bool):
+    """Build the engine `_solve` routed to, with the solve's logger, and
+    run it."""
     checkpointer = _checkpointer(args)
     if args.engine == "hybrid":
         from gamesmanmpi_tpu_torch.solve.hybrid import HybridSolver
@@ -514,11 +668,12 @@ def _solve(args, t0: float) -> tuple[int, Optional[object]]:
         try:
             solver = DenseSolver(game, store_tables=not args.no_tables,
                                  device=device, checkpointer=checkpointer,
-                                 devices=args.devices)
+                                 devices=args.devices, logger=logger)
         except ValueError as e:  # --devices past the visible devices
             return _error(str(e)), None
     elif args.devices > 1 or world > 1:
-        solver, rc = _sharded_solver(game, args, device, checkpointer)
+        solver, rc = _sharded_solver(game, args, device, checkpointer,
+                                     logger)
         if solver is None:
             return rc, None
     else:
@@ -526,8 +681,9 @@ def _solve(args, t0: float) -> tuple[int, Optional[object]]:
 
         solver = Solver(game, device=device, paranoid=args.paranoid,
                         store_tables=not args.no_tables,
-                        checkpointer=checkpointer)
-    return _run_solve(solver.solve, checkpointer, args, t0)
+                        checkpointer=checkpointer, logger=logger)
+    return _run_solve(solver.solve, checkpointer, args, t0, logger, world,
+                      lambda: getattr(solver, "progress", {}))
 
 
 def _checkpointer(args):
@@ -538,14 +694,38 @@ def _checkpointer(args):
     return LevelCheckpointer(args.checkpoint_dir)
 
 
-def _run_solve(solve, checkpointer, args, t0: float):
-    """Run `solve()` and report it -> (exit code, SolveResult or None)."""
+def _abnormal_exit(logger, phase: str, line: str, key: str, err,
+                   progress: dict) -> None:
+    """stderr's "<line>" and "progress: ..." lines and the ``phase``
+    record; progress's own "phase" is kept as "in_phase", so the record
+    never reads as a level row."""
+    print(f"{line}\nprogress: {progress}", file=sys.stderr)
+    sys.stderr.flush()
+    if logger is not None:
+        logger.log({"phase": phase, key: str(err)[:200],
+                    **{("in_phase" if k == "phase" else k): v
+                       for k, v in progress.items()
+                       if isinstance(v, (int, str, float))}})
+        logger.close()
+
+
+def _run_solve(solve, checkpointer, args, t0: float, logger=None,
+               world: int = 1, progress=dict):
+    """Run `solve()` under --profile-dir and report it -> (exit code,
+    SolveResult or None). Every abnormal exit dumps the flight recorder
+    into GAMESMAN_FLIGHTREC_DIR (the checkpoint directory by default) and
+    writes its record; `progress()` is the solver's last progress."""
     import os
 
+    from gamesmanmpi_tpu_torch.obs import flightrec
     from gamesmanmpi_tpu_torch.resilience import preempt
     from gamesmanmpi_tpu_torch.resilience.coordination import (
         CoordinatedAbort,
     )
+    from gamesmanmpi_tpu_torch.resilience.supervisor import (
+        WATCHDOG_EXIT_CODE,
+    )
+    from gamesmanmpi_tpu_torch.utils.profiling import maybe_profile
 
     # Only a checkpointed solve gets the grace handlers: exit 75 promises
     # "rerun me on the same directory", and a solve with nothing sealed
@@ -553,19 +733,40 @@ def _run_solve(solve, checkpointer, args, t0: float):
     restore_grace = (preempt.install_grace_handler()
                      if checkpointer is not None else (lambda: None))
     try:
-        result = solve()
+        with maybe_profile(args.profile_dir):
+            result = solve()
     except preempt.PreemptionRequested as e:
-        print(f"preempted: {e}", file=sys.stderr)
-        sys.stderr.flush()
+        flightrec.dump("preempted")
+        _abnormal_exit(logger, "preempted", f"preempted: {e}", "detail", e,
+                       progress())
         return preempt.GRACE_EXIT_CODE, None
+    except MemoryError as e:
+        # Host memory: memguard's HostMemoryExceeded at a level boundary,
+        # or a real MemoryError mid-level. The sealed prefix is intact;
+        # the "out of memory" line is what a supervisor classifies.
+        flightrec.dump("oom")
+        _abnormal_exit(logger, "oom", f"out of memory: {e}", "error", e,
+                       progress())
+        if world > 1:
+            # A clean exit could block tearing down a group whose peers
+            # are unwinding through the collective deadline.
+            sys.stdout.flush()
+            os._exit(1)
+        return 1, None
     except CoordinatedAbort as e:
         # The world agreed to stop (a peer died, diverged or timed out):
         # the reference's resumable-abort contract, exit 124. os._exit: a
         # clean exit could block tearing down a group with a dead peer.
-        print(f"coordinated abort: {e}", file=sys.stderr)
+        flightrec.dump("coordinated_abort")
+        _abnormal_exit(logger, "coordinated_abort",
+                       f"coordinated abort: {e}", "error", e, progress())
         sys.stdout.flush()
-        sys.stderr.flush()
-        os._exit(preempt.WATCHDOG_EXIT_CODE)
+        os._exit(WATCHDOG_EXIT_CODE)
+    except Exception:
+        # Any other death leaves the post-mortem (last completed level,
+        # spans in flight) before the traceback propagates.
+        flightrec.dump("crash")
+        raise
     finally:
         restore_grace()
     _report(result, args.devices, time.perf_counter() - t0, args)
@@ -589,11 +790,7 @@ def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
     --devices/--paranoid/--checkpoint-dir are then ignored with a
     warning. --engine dense applies to the built-in Connect-4 family only
     and exits 2."""
-    from gamesmanmpi_tpu_torch.compat import (
-        load_game_module,
-        solve_module,
-        solve_module_tensorized,
-    )
+    from gamesmanmpi_tpu_torch.compat import load_game_module
 
     if args.engine in ("dense", "hybrid"):
         return _error(f"--engine {args.engine} applies to the built-in "
@@ -611,6 +808,21 @@ def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
         world, rc = _join_world(args, device)
         if rc is not None:
             return rc, None
+    logger = _solve_logger(args, world)
+    with _logger_scope(logger), _obs_scope(args):
+        return _solve_module_with(module, args, t0, device, world, logger)
+
+
+def _solve_module_with(module, args, t0: float, device, world: int,
+                       logger):
+    """The compat solve itself, inside the logger and obs scopes."""
+    from gamesmanmpi_tpu_torch.compat import (
+        solve_module,
+        solve_module_tensorized,
+    )
+    from gamesmanmpi_tpu_torch.utils.profiling import maybe_profile
+
+    engine_capable = hasattr(module, "level_of")
     for flag, name in ((args.devices > 1, "--devices"),
                        (args.paranoid, "--paranoid"),
                        (args.checkpoint_dir, "--checkpoint-dir")):
@@ -621,20 +833,22 @@ def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
                   "engine", file=sys.stderr)
     if engine_capable:
         checkpointer = _checkpointer(args)
-        kwargs = {"checkpointer": checkpointer}
+        kwargs = {"checkpointer": checkpointer, "logger": logger}
         if args.devices > 1 or world > 1:
             kwargs["devices"] = max(args.devices, world)
         return _run_solve(
             lambda: solve_module_tensorized(
                 module, device=device, paranoid=args.paranoid,
                 store_tables=not args.no_tables, **kwargs),
-            checkpointer, args, t0)
-    value, remoteness, table = solve_module(module)
+            checkpointer, args, t0, logger, world)
+    with maybe_profile(args.profile_dir):
+        value, remoteness, table = solve_module(module)
+    elapsed = time.perf_counter() - t0
     print(f"game: {pathlib.Path(args.game).stem} (compat module)")
     print(f"positions: {len(table)}")
     print(f"value: {value_name(value)}")
     print(f"remoteness: {remoteness}")
-    print(f"elapsed: {time.perf_counter() - t0:.3f}s")
+    print(f"elapsed: {elapsed:.3f}s")
     if args.table_out:
         from gamesmanmpi_tpu_torch.utils.checkpoint import save_table_npz
 
@@ -651,6 +865,10 @@ def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
         else:
             print(f"query {q}: value={value_name(hit[0])} "
                   f"remoteness={hit[1]}")
+    if logger is not None:
+        logger.log({"phase": "done", "game": pathlib.Path(args.game).stem,
+                    "compat": True, "positions": len(table),
+                    "secs_total": elapsed})
     return 0, None
 
 
@@ -658,12 +876,7 @@ def _export_db(args, t0: float) -> int:
     """The reference's `_cmd_export_db`: a fresh classic solve streamed
     into the writer (Solver(store_tables=False, level_sink=...)), or a
     checkpoint directory converted; then the optional opening book."""
-    from gamesmanmpi_tpu_torch.db import (
-        DbFormatError,
-        DbWriter,
-        export_checkpoint,
-    )
-    from gamesmanmpi_tpu_torch.utils.env import env_bool, env_int
+    from gamesmanmpi_tpu_torch.utils.env import env_bool
 
     game, rc = _get_game(args.game)
     if game is None:
@@ -673,6 +886,21 @@ def _export_db(args, t0: float) -> int:
         return rc
     compress = (env_bool("GAMESMAN_DB_COMPRESS", False)
                 if args.compress is None else bool(args.compress))
+    logger = _build_logger(args)
+    with _logger_scope(logger):
+        return _export_db_with(args, t0, game, device, compress, logger)
+
+
+def _export_db_with(args, t0: float, game, device, compress: bool,
+                    logger) -> int:
+    """The export itself, inside the logger's scope."""
+    from gamesmanmpi_tpu_torch.db import (
+        DbFormatError,
+        DbWriter,
+        export_checkpoint,
+    )
+    from gamesmanmpi_tpu_torch.utils.env import env_int
+
     try:
         if args.from_checkpoint:
             from gamesmanmpi_tpu_torch.utils.checkpoint import (
@@ -687,7 +915,8 @@ def _export_db(args, t0: float) -> int:
                               f"{args.from_checkpoint}")
             manifest = export_checkpoint(
                 LevelCheckpointer(args.from_checkpoint), game, args.game,
-                args.out, overwrite=args.overwrite, compress=compress)
+                args.out, overwrite=args.overwrite, logger=logger,
+                compress=compress)
         else:
             from gamesmanmpi_tpu_torch.solve.engine import Solver
 
@@ -695,7 +924,8 @@ def _export_db(args, t0: float) -> int:
                               overwrite=args.overwrite, compress=compress)
             try:
                 Solver(game, device=device, store_tables=False,
-                       level_sink=writer.add_level_table).solve()
+                       level_sink=writer.add_level_table,
+                       logger=logger).solve()
                 manifest = writer.finalize()
             except BaseException:  # incl. Ctrl-C mid-solve: the old
                 writer.abort()     # DB keeps serving, staging is gone
@@ -773,8 +1003,8 @@ def _query(args) -> int:
 
 
 def _build_logger(args):
-    """The --jsonl/--verbose logger of `serve` (the reference's
-    ``_build_logger``), or None when neither flag is set."""
+    """The --jsonl/--verbose logger every command shares (the
+    reference's ``_build_logger``), or None when neither flag is set."""
     from gamesmanmpi_tpu_torch.utils.metrics import (
         JsonlLogger,
         StdoutLogger,
@@ -787,11 +1017,37 @@ def _build_logger(args):
                      StdoutLogger() if args.verbose else None)
 
 
+def _solve_logger(args, world: int):
+    """The solve's logger; in a world every record carries ``rank``."""
+    from gamesmanmpi_tpu_torch.utils.metrics import RankLogger
+
+    logger = _build_logger(args)
+    if logger is not None and world > 1:
+        logger = RankLogger(logger, _world_rank())
+    return logger
+
+
 def _logger_scope(logger):
     """Context that closes `logger` on exit, or a no-op without one."""
-    import contextlib
-
     return logger if logger is not None else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _obs_scope(args):
+    """--trace-events / --metrics-out lifetime: a trace sink for the solve,
+    and both artifacts written on exit, a failed solve's too (a partial
+    trace of a dead solve is when it is most wanted). --metrics-out is
+    the registry's snapshot as JSON, as the reference writes it."""
+    from gamesmanmpi_tpu_torch.obs import default_registry
+    from gamesmanmpi_tpu_torch.obs.tracing import trace_events_scope
+
+    with trace_events_scope(args.trace_events):
+        try:
+            yield
+        finally:
+            if args.metrics_out:
+                with open(args.metrics_out, "w") as fh:
+                    json.dump(default_registry().snapshot(), fh, indent=1)
 
 
 def _serve(args) -> int:

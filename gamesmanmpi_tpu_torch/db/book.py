@@ -9,8 +9,7 @@ for every RAW position reachable within ``GAMESMAN_BOOK_PLIES`` moves of
 the initial position and seals the table as ``book.gmb`` next to the
 levels, recorded in the manifest like any other payload (file + sha256).
 A book hit is answered entirely from resident arrays: no canonicalize,
-no block decode (the reference's server serves it that way; serving is
-not ported yet).
+no block decode (serve/server.py answers it that way).
 
 RAW positions on purpose: clients hold raw states (they play raw moves
 from the raw initial position — ``lookup_best``'s best children are raw

@@ -31,8 +31,8 @@ registry it is given, query spans (obs/qtrace.qspan), the cross-worker
 shared-memory tier (``shm=``, store/shm.py) under the block store, and
 the private per-reader store that ``GAMESMAN_DB_CACHE_MB`` carves.
 
-Not ported: GameSpec databases (``game_spec`` in the manifest: the game
-compiler is not ported).
+A GameSpec database (``game_spec`` in the manifest) rebuilds its game
+from the embedded canonical spec (gamedsl), as the reference's does.
 """
 
 from __future__ import annotations
@@ -103,10 +103,22 @@ class DbReader:
             "served from page cache or disk",
         )
         if game is None and self.manifest.get("game_spec") is not None:
-            raise DbFormatError(
-                f"{self.dir}: a GameSpec database (manifest game_spec) — "
-                "the game compiler is not yet ported to the torch port"
-            )
+            # gamedsl DB: the manifest embeds the canonical spec document,
+            # so the game reconstructs even when the original .json file
+            # moved or changed — the DB answers for the rules it was
+            # solved under, never for whatever the path now holds.
+            from gamesmanmpi_tpu_torch.gamedsl import GameSpec, SpecError
+            from gamesmanmpi_tpu_torch.gamedsl.compiler import compile_spec
+
+            try:
+                game = compile_spec(
+                    GameSpec.from_dict(self.manifest["game_spec"])
+                )
+            except SpecError as e:
+                raise DbFormatError(
+                    f"{self.dir}: embedded game_spec is not "
+                    f"compilable: {e}"
+                ) from e
         if game is None:
             from gamesmanmpi_tpu_torch.games import get_game
 

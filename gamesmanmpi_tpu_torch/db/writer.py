@@ -377,7 +377,7 @@ def export_result(result, directory, spec: str, *,
 
 
 def export_checkpoint(checkpointer, game, spec: str, directory, *,
-                      overwrite: bool = False,
+                      overwrite: bool = False, logger=None,
                       compress: bool = False) -> dict:
     """Convert an existing --checkpoint-dir into a servable DB. -> manifest.
 
@@ -417,9 +417,25 @@ def export_checkpoint(checkpointer, game, spec: str, directory, *,
     writer = DbWriter(directory, game, spec, overwrite=overwrite,
                       compress=compress)
     try:
+        counts = {}
         for level in levels:
-            writer.add_level_table(level, checkpointer.load_level(level))
-        return writer.finalize()
+            table = checkpointer.load_level(level)
+            writer.add_level_table(level, table)
+            counts[level] = int(table.states.shape[0])
+        manifest_out = writer.finalize()
+        if logger is not None:
+            # After finalize: every ticket has resolved, so the per-level
+            # figures cost no ticket wait (logging during the loop would
+            # block on each just-enqueued write).
+            for level in levels:
+                record = {"phase": "export_db", "level": level,
+                          "n": counts[level]}
+                rec = writer.level_record(level)
+                if "stored_bytes" in rec:
+                    record["raw_bytes"] = rec["raw_bytes"]
+                    record["stored_bytes"] = rec["stored_bytes"]
+                logger.log(record)
+        return manifest_out
     except BaseException:  # incl. KeyboardInterrupt: drop the staging dir
         writer.abort()
         raise

@@ -6,8 +6,9 @@ Spec grammar, as in the reference: "name" or "name:key=value,...", e.g.
     nim:heaps=3-4-5      nim:heaps=1-2-10,misere=1
     chomp:w=4,h=3        chomp:w=3,h=3,sym=1
 
-Declarative GameSpec files (``*.json``) raise :class:`NotPortedError`:
-the game compiler is not ported yet (the CLI exits 2).
+A path ending ``.json`` is a declarative GameSpec file, compiled by
+gamedsl (gamedsl/compiler.py) as the reference compiles it; an
+unreadable file or a bad spec is a ValueError.
 """
 
 from __future__ import annotations
@@ -41,9 +42,15 @@ def _intlist(v: str):
 def get_game(spec: str) -> TensorGame:
     """Construct a built-in game from a spec string (see module docstring)."""
     if spec.strip().lower().endswith(".json"):
-        raise NotPortedError(
-            f"game spec files ({spec!r}) are not yet ported: the game "
-            "compiler is a later slice (ROADMAP Queue 1)")
+        # A declarative GameSpec file: compile it. SpecError subclasses
+        # ValueError, so callers' bad-spec handling covers both paths.
+        from gamesmanmpi_tpu_torch.gamedsl.compiler import compile_spec
+
+        try:
+            return compile_spec(spec.strip())
+        except OSError as e:
+            raise ValueError(
+                f"cannot read game spec file {spec!r}: {e}") from e
     name, _, rest = spec.partition(":")
     kw = _parse_kwargs(rest)
     name = name.strip().lower()

@@ -85,10 +85,24 @@ Preemption grace in a world: at every level boundary each rank folds its
 grace flag into a consensus round (:meth:`ShardedSolver._check_preempt`),
 so the whole world stops at the same boundary and exits 75 together.
 
-Not ported here: the host-memory guard (``memguard``, with the campaign
-work), window streaming (``GAMESMAN_WINDOW_BLOCK``), the route capacity
-and its spill loop (parallel/exchange.py says why), background compiles,
-status and logging.
+Instrumentation, as in the reference: a ``forward`` record per level
+(``frontier``, ``children``, ``shards``; a fast-path level's children are
+the next step's control round, so its record follows that round), a
+``backward`` or ``backward_edges`` span per level (``n``, ``shards``,
+``mode``, ``resumed``, ``io_wait_secs``), ``reshard``, ``retry`` and
+``done`` records; the host-memory guard (resilience/memguard.py) before
+every boundary's preemption round; the flight recorder's level boundaries
+and its dump on a collective-deadline abort; the watchdog
+(``GAMESMAN_WATCHDOG_SECS``), the heartbeat (``heartbeat_secs`` /
+``GAMESMAN_HEARTBEAT_SECS``) and the ``/status`` server
+(``GAMESMAN_STATUS_PORT``; rank i binds port+i, and rank 0 serves the
+fleet-merged view of the peers announced to the coordinator). A record
+carries what the engine holds on the host; no synchronisation is added
+for one.
+
+Not ported here: window streaming (``GAMESMAN_WINDOW_BLOCK``), the route
+capacity and its spill loop (parallel/exchange.py says why), background
+compiles, and the analytic byte and dispatch counts.
 """
 
 from __future__ import annotations
@@ -115,7 +129,13 @@ from gamesmanmpi_tpu_torch.core.codec import (
 from gamesmanmpi_tpu_torch.core.hashing import owner_shard, owner_shard_np
 from gamesmanmpi_tpu_torch.core.values import UNDECIDED
 from gamesmanmpi_tpu_torch.games.base import TensorGame
-from gamesmanmpi_tpu_torch.obs import default_registry
+from gamesmanmpi_tpu_torch.obs import (
+    SolveStatusTracker,
+    Span,
+    default_registry,
+    flightrec,
+)
+from gamesmanmpi_tpu_torch.obs import status as obs_status
 from gamesmanmpi_tpu_torch.ops.combine import combine_children
 from gamesmanmpi_tpu_torch.ops.dedup import compact_sorted, sort_unique
 from gamesmanmpi_tpu_torch.ops.lookup import lookup_window
@@ -126,7 +146,7 @@ from gamesmanmpi_tpu_torch.ops.provenance import (
 )
 from gamesmanmpi_tpu_torch.parallel.exchange import all_gather, all_to_all
 from gamesmanmpi_tpu_torch.parallel.mesh import make_mesh
-from gamesmanmpi_tpu_torch.resilience import faults, preempt
+from gamesmanmpi_tpu_torch.resilience import faults, memguard, preempt
 from gamesmanmpi_tpu_torch.resilience.coordination import (
     ABORT,
     OK,
@@ -135,8 +155,8 @@ from gamesmanmpi_tpu_torch.resilience.coordination import (
     CoordinationError,
     coordination_from_env,
 )
-from gamesmanmpi_tpu_torch.resilience.preempt import WATCHDOG_EXIT_CODE
 from gamesmanmpi_tpu_torch.resilience.retry import is_transient, retry_call
+from gamesmanmpi_tpu_torch.resilience.supervisor import WATCHDOG_EXIT_CODE
 from gamesmanmpi_tpu_torch.store import TORN_SEAL_ERRORS as TORN_NPZ_ERRORS
 from gamesmanmpi_tpu_torch.store import default_store
 from gamesmanmpi_tpu_torch.solve.engine import (
@@ -147,6 +167,8 @@ from gamesmanmpi_tpu_torch.solve.engine import (
     _finish,
     canonical_children,
     canonical_scalar,
+    record_solve,
+    watched,
 )
 from gamesmanmpi_tpu_torch.utils.checkpoint import (
     CheckpointGeometryError,
@@ -279,13 +301,23 @@ class ShardedSolver:
     level's table is always kept: the hybrid's boundary join reads it,
     the reference's ``materialize_root_table``). checkpointer: a
     utils/checkpoint.LevelCheckpointer to seal into and resume from.
+    logger: a utils/metrics logger for the per-level records;
+    heartbeat_secs: the heartbeat period (0 = off; None reads
+    GAMESMAN_HEARTBEAT_SECS).
     """
 
     def __init__(self, game: TensorGame, *, num_shards: int = 1,
                  device="cuda", paranoid: bool = False,
-                 store_tables: bool = True, checkpointer=None):
+                 store_tables: bool = True, checkpointer=None, logger=None,
+                 heartbeat_secs: Optional[float] = None):
         self.game = game
         self.checkpointer = checkpointer
+        self.logger = logger
+        if heartbeat_secs is None:
+            heartbeat_secs = env_float("GAMESMAN_HEARTBEAT_SECS", 0.0)
+        self.heartbeat_secs = float(heartbeat_secs)
+        #: the live /status progress model (obs/status.py)
+        self.status_tracker = SolveStatusTracker()
         self.store = (checkpointer.store if checkpointer is not None
                       else default_store())
         #: deferred seals (one process, write-behind): (tickets, seal_fn)
@@ -358,7 +390,7 @@ class ShardedSolver:
                 self.retries += 1
 
             return retry_call(unit, point=point, level=level,
-                              on_retry=on_retry)
+                              logger=self.logger, on_retry=on_retry)
         return self._retry_collective(point, fn, level, entry)
 
     def _retry_collective(self, point: str, fn, level, entry=None):
@@ -388,7 +420,7 @@ class ShardedSolver:
             decision = self._propose_step(point, level, attempt, "pre",
                                           verdict, err)
             if decision == RETRY:
-                self._note_coordinated_retry(point, level, attempt)
+                self._note_coordinated_retry(point, level, attempt, err)
                 if base > 0:
                     time.sleep(base * (2 ** (attempt - 1)))
                 continue
@@ -407,7 +439,7 @@ class ShardedSolver:
                 decision = self._propose_step(point, level, attempt,
                                               "post", RETRY, e)
                 if decision == RETRY:
-                    self._note_coordinated_retry(point, level, attempt)
+                    self._note_coordinated_retry(point, level, attempt, e)
                     if base > 0:
                         time.sleep(base * (2 ** (attempt - 1)))
                     continue
@@ -436,10 +468,12 @@ class ShardedSolver:
                 f"coordination failed at {tag} (rank {self.rank}): {e}"
             ) from (err or e)
 
-    def _note_coordinated_retry(self, point: str, level, attempt: int):
+    def _note_coordinated_retry(self, point: str, level, attempt: int,
+                                err) -> None:
         """Every rank counts the fleet-wide retry, whichever rank hosted
         the fault (the registry's constant ``rank`` label tells them
-        apart), and writes one line to stderr."""
+        apart), records it in the flight recorder and the logger, and
+        writes one line to stderr."""
         self.retries += 1
         sys.stderr.write(f"[coordination] rank {self.rank} retries {point} "
                          f"level {level} (attempt {attempt})\n")
@@ -448,6 +482,18 @@ class ShardedSolver:
             "gamesman_retries_total",
             "transient step failures absorbed by retry", point=point,
         ).inc()
+        flightrec.record(
+            "retry", point=point, attempt=attempt, level=level,
+            coordinated=True,
+            error=str(err)[:120] if err is not None else "peer",
+        )
+        if self.logger is not None:
+            rec = {"phase": "retry", "point": point, "attempt": attempt,
+                   "rank": self.rank, "coordinated": True,
+                   "error": str(err)[:200] if err is not None else "peer"}
+            if level is not None:
+                rec["level"] = int(level)
+            self.logger.log(rec)
 
     def _coordinated_abort(self, point: str, level, err, verdict):
         """Raise this rank's own error when it caused the abort, else
@@ -485,6 +531,16 @@ class ShardedSolver:
                     "collectives aborted by the per-collective deadline",
                     point=point,
                 ).inc()
+                if self.logger is not None:
+                    try:
+                        self.logger.log(rec)
+                    except Exception:  # noqa: BLE001 - exiting anyway
+                        pass
+                # Post-mortem before the hard exit (timer thread, never
+                # a signal handler): the collective this rank died in.
+                flightrec.record("collective_deadline", point=point,
+                                 level=level)
+                flightrec.dump("collective_deadline")
                 os._exit(WATCHDOG_EXIT_CODE)
 
             timer = threading.Timer(secs, expire)
@@ -506,15 +562,17 @@ class ShardedSolver:
         rank raises :class:`~..resilience.preempt.PreemptionRequested`
         at the same boundary and the world exits 75 together. A failed
         round is a CoordinatedAbort (exit 124), still resumable. The
-        reference's host-memory guard (``memguard.check``) runs here
-        too; it belongs to the campaign work and is not ported."""
+        host-memory guard runs first: past its limit this rank raises
+        HostMemoryExceeded at the boundary (rank-local, as in the
+        reference: peers unwind through the collective deadline)."""
+        memguard.check(phase, level=level, logger=self.logger)
         flagged = preempt.requested()
         if self.coord is not None:
             decision = self._propose_step(
                 "preempt", level, 0, phase, ABORT if flagged else OK, None)
             flagged = flagged or decision != OK
         if flagged:
-            preempt.check(phase, level=level)
+            preempt.check(phase, level=level, logger=self.logger)
             # A peer was preempted and this rank's own signal has not
             # arrived: the same unwind, attributed to the peer.
             raise preempt.PreemptionRequested(
@@ -911,7 +969,9 @@ class ShardedSolver:
             frontier, k = self._seed(init), start
             self._ckpt_forward_level(k, frontier)
         stored = 0
+        pending = None  # the last level's record, waiting for its children
         while True:
+            t0 = time.perf_counter()
             self.progress = {"phase": "forward", "level": k,
                              "rank": self.rank}
             # Level boundary: level k's files are enqueued or sealed.
@@ -923,6 +983,12 @@ class ShardedSolver:
             sizes, C, uniq, eidx, slot, _ = self._retry(
                 "sharded.forward", _step, level=k,
                 entry=lambda k=k: faults.fire("sharded.forward", level=k))
+            n = int(sizes.sum())
+            if pending is not None:
+                # This step's control round counted level k: the children
+                # of level k-1.
+                self._log_forward(**pending, children=n)
+                pending = None
             rec = levels.get(k)
             if rec is None:
                 rec = levels[k] = _SLevel(sizes, frontier)
@@ -930,6 +996,9 @@ class ShardedSolver:
                 rec.dev = frontier
             stored += _nbytes(frontier)
             if uniq is None:
+                self.status_tracker.forward_level(
+                    k, n, time.perf_counter() - t0)
+                flightrec.boundary("forward", k)
                 break
             rec.C = C
             if eidx is not None:
@@ -946,8 +1015,21 @@ class ShardedSolver:
                 self._ckpt_edges_level(k, rec)
             self._spill_if_over(rec, stored)
             self._ckpt_forward_level(k + 1, uniq)
+            secs = time.perf_counter() - t0
+            pending = {"level": k, "frontier": n, "secs": secs}
+            self.status_tracker.forward_level(k, n, secs)
+            flightrec.boundary("forward", k)
             frontier, k = uniq, k + 1
         return levels
+
+    def _log_forward(self, level: int, frontier: int, secs: float,
+                     **fields) -> None:
+        """One forward level's record (the reference's fields that the
+        engine holds on the host)."""
+        if self.logger is not None:
+            self.logger.log({"phase": "forward", "level": level,
+                             "frontier": frontier, **fields,
+                             "shards": self.S, "secs": secs})
 
     def _host_level(self, per_shard) -> _SLevel:
         """A level from host arrays of every shard (a loaded snapshot):
@@ -979,6 +1061,7 @@ class ShardedSolver:
         while pools:
             k = min(pools)
             frontier = pools.pop(k)
+            t0 = time.perf_counter()
             self.progress = {"phase": "forward", "level": k,
                              "rank": self.rank}
             self._check_preempt("forward", k)
@@ -992,7 +1075,19 @@ class ShardedSolver:
             rec = levels[k] = _SLevel(sizes, frontier)
             stored += _nbytes(frontier)
             self._spill_if_over(rec, stored)
+            width = int(sizes.sum())
+            fields = {}
+            if self.num_processes == 1:
+                # Every shard is local: the deduplicated children are
+                # counted on this host. A world would need another
+                # round, so its record leaves the field out.
+                fields["children"] = (sum(int(u.numel()) for u in uniq)
+                                      if uniq is not None else 0)
             if uniq is None:
+                secs = time.perf_counter() - t0
+                self._log_forward(k, width, secs, **fields)
+                self.status_tracker.forward_level(k, width, secs)
+                flightrec.boundary("forward", k)
                 continue
             kid_levels = [g.level_of(u) if u.numel() else
                           torch.empty(0, dtype=torch.int32, device=u.device)
@@ -1009,6 +1104,10 @@ class ShardedSolver:
                     self.syncs += 1
                     merged.append(m[:c])
                 pools[L] = merged
+            secs = time.perf_counter() - t0
+            self._log_forward(k, width, secs, **fields)
+            self.status_tracker.forward_level(k, width, secs)
+            flightrec.boundary("forward", k)
         return levels
 
     # ------------------------------------------------------ backward
@@ -1163,14 +1262,24 @@ class ShardedSolver:
         order = sorted(levels, reverse=True)
         for i, k in enumerate(order):
             rec = levels[k]
+            n = int(rec.counts.sum())
+            io0 = self.store.stats()["io_wait_secs"]
             self.progress = {"phase": "backward", "level": k,
-                             "rank": self.rank}
+                             "rank": self.rank, "n": n}
             self._check_preempt("backward", k)
             if ck is not None and i + 1 < len(order):
                 self._hint_backward_level(order[i + 1], levels[order[i + 1]],
                                           completed)
+            # Distinct span names show which levels ran which backward;
+            # the span starts before the re-upload and the edge load.
+            want_edges = (self.use_edges and k not in completed
+                          and (k + 1) in cache
+                          and self._edges_available(k, rec))
+            sp = Span("backward_edges" if want_edges else "backward",
+                      logger=self.logger, level=k)
             states = self._states(rec)
             loaded = None
+            edges = False
             if k in completed:
                 try:
                     loaded = self._load_checkpointed_level(k, rec, states)
@@ -1220,14 +1329,68 @@ class ShardedSolver:
             rec.dev = rec.host = rec.eidx = rec.slot = None
             for done in [d for d in cache if d > k + g.max_level_jump]:
                 del cache[done]
+            resumed = loaded is not None
+            sp.end(n=n, shards=self.S,
+                   mode="edges" if edges else "lookup", resumed=resumed,
+                   io_wait_secs=round(
+                       self.store.stats()["io_wait_secs"] - io0, 6))
+            self.status_tracker.backward_level(k, n, sp.secs,
+                                               resumed=resumed)
+            flightrec.boundary("backward", k)
         return resolved, answer
+
+    def _store_stats(self, t0: dict) -> dict:
+        """This solve's block-store I/O deltas (the store is process-wide;
+        the queue depth is its peak since the process started)."""
+        now = self.store.stats()
+        hits = now["prefetch_hits"] - t0["prefetch_hits"]
+        misses = now["prefetch_misses"] - t0["prefetch_misses"]
+        return {
+            "io_wait_secs": now["io_wait_secs"] - t0["io_wait_secs"],
+            "prefetch_hits": hits,
+            "prefetch_misses": misses,
+            "prefetch_hit_rate": (hits / (hits + misses) if hits + misses
+                                  else 0.0),
+            "writebehind_writes": (now["writebehind_writes"]
+                                   - t0["writebehind_writes"]),
+            "writebehind_queue_depth": now["writebehind_queue_depth_peak"],
+        }
+
+    def _edges_available(self, k: int, rec: _SLevel) -> bool:
+        """Level k's edges are in memory, or sealed at this shard count
+        (a manifest read; the load itself may still degrade)."""
+        if rec.eidx is not None:
+            return True
+        if self.checkpointer is None:
+            return False
+        info = self.checkpointer.load_manifest().get(
+            "edge_levels", {}).get(str(k))
+        return bool(info) and info.get("shards") == self.S
 
     # ------------------------------------------------------------ solve
 
     def solve(self) -> SolveResult:
+        """The solve body under the env-gated watchdog, the optional
+        heartbeat and the live status server (all read ``progress``)."""
+        self.status_tracker.begin(
+            game=self.game.name, engine="sharded", shards=self.S,
+            world=self.num_processes, rank=self.rank)
+        status_srv = obs_status.maybe_status_server(
+            self._status_payload, rank=self.rank, world=self.num_processes)
+        if status_srv is not None and self.coord is not None:
+            # Publish this rank's /status address in the coordinator's
+            # address book, where rank 0's fleet view finds it.
+            try:
+                self.coord.announce(status_srv.address)
+            except CoordinationError:
+                pass  # status stays rank-local; the solve is unaffected
         try:
-            return self._solve_impl()
+            with watched(lambda: self.progress, self.logger,
+                         self.heartbeat_secs):
+                return self._solve_impl()
         finally:
+            if status_srv is not None:
+                status_srv.stop()
             # Deferred seals are safe on the error path too (their
             # payloads are queued and waited on), and losing them would
             # unseal intact levels. Never mask the primary failure.
@@ -1237,6 +1400,30 @@ class ShardedSolver:
                 pass
             if self.coord is not None:
                 self.coord.close()
+
+    def _status_payload(self) -> dict:
+        """The /status body (HTTP handler threads; reads only replaced
+        state). Rank 0 of a world folds in the fleet-merged view: every
+        announced peer's /status is scraped (short deadline, a dead peer
+        is left out) and merged (obs/status.merge_fleet)."""
+        snap = self.status_tracker.snapshot(progress=self.progress)
+        snap["retries"] = self.retries
+        if self.rank == 0 and self.num_processes > 1:
+            peer_snaps = {0: snap}
+            if self.coord is not None:
+                try:
+                    book = self.coord.peers()
+                except CoordinationError:
+                    book = {}
+                for r, addr in book.items():
+                    if r == 0:
+                        continue
+                    got = obs_status.fetch_status(addr)
+                    if got is not None:
+                        peer_snaps[r] = got
+            snap["fleet"] = obs_status.merge_fleet(
+                peer_snaps, world=self.num_processes)
+        return snap
 
     def _resume_gate(self) -> None:
         """Bind the directory, compare its sealed geometry with this run's
@@ -1253,6 +1440,15 @@ class ShardedSolver:
             sealed = geom["sealed"]
             self.resharded_from = (sealed["num_shards"]
                                    or sealed["shard_counts"][-1])
+            if self.logger is not None:
+                self.logger.log({
+                    "phase": "reshard",
+                    "from_shards": sealed["shard_counts"],
+                    "from_world": sealed.get("num_processes"),
+                    "to_shards": self.S,
+                    "to_world": self.num_processes,
+                    "epoch": sealed.get("epoch"),
+                })
         if self.coord is not None:
             self.coord.barrier(f"resume:{ck.resume_digest(self.S)}")
         else:
@@ -1311,6 +1507,9 @@ class ShardedSolver:
         levels = self._discover(init, start)
         t_forward = time.perf_counter() - t0
         num_positions = sum(int(rec.counts.sum()) for rec in levels.values())
+        # The level schedule is fixed: /status's ETA knows the rest.
+        self.status_tracker.set_schedule(
+            {k: int(rec.counts.sum()) for k, rec in levels.items()})
         resolved, (value, remoteness, misses) = self._backward(
             levels, start, init)
         self._flush_seals()
@@ -1349,11 +1548,13 @@ class ShardedSolver:
             "ckpt_bytes_raw": self.ckpt_bytes_raw,
             "ckpt_bytes_stored": self.ckpt_bytes_stored,
             "ckpt_save_secs": self.ckpt_save_secs,
-            "io_wait_secs": (self.store.stats()["io_wait_secs"]
-                             - store0["io_wait_secs"]),
+            **self._store_stats(store0),
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(mesh.home)
                                if cuda else None),
         }
+        if self.logger is not None:
+            self.logger.log({"phase": "done", **stats})
+        record_solve(g.name, num_positions, t_total)
         return SolveResult(g, value, remoteness, resolved, stats)
 
 

@@ -1,3 +1,5 @@
-"""Fault injection, level-step retry and preemption grace (port of the
-gamesmanmpi_tpu/resilience/ modules the solve and serving paths use:
-``faults``, ``retry`` and ``preempt``). Stdlib only."""
+"""Fault injection, level-step retry, preemption grace, the per-level
+watchdog and the host-memory guard (port of the gamesmanmpi_tpu/
+resilience/ modules the solve and serving paths use: ``faults``,
+``retry``, ``preempt``, ``supervisor``, ``memguard`` and
+``coordination``). Stdlib only."""

@@ -29,8 +29,8 @@ Grammar (``GAMESMAN_FAULTS``, comma-separated directives)::
 The table is read from the environment at the first visit of any point
 (or set by :func:`configure`); a disarmed process pays one falsy check
 per visit. Every injection counts into
-``gamesman_faults_injected_total{point,kind}``; the reference's
-flight-recorder event waits for the flight recorder.
+``gamesman_faults_injected_total{point,kind}`` and is a ``fault`` event
+in the flight recorder (obs/flightrec.py).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ import random
 import sys
 import time
 
-from gamesmanmpi_tpu_torch.obs import default_registry
+from gamesmanmpi_tpu_torch.obs import default_registry, flightrec
 from gamesmanmpi_tpu_torch.utils.env import env_opt
 
 
@@ -203,6 +203,10 @@ def _inject(d: _Directive, point: str, path, ctx: dict) -> None:
         "gamesman_faults_injected_total", "injected faults fired",
         point=point, kind=d.kind,
     ).inc()
+    # An injected fault is exactly the kind of recent event a post-mortem
+    # dump must show.
+    flightrec.record("fault", point=point, fault_kind=d.kind,
+                     visit=d.visits)
     if d.kind == "transient":
         raise TransientFault(f"injected transient fault at {where}")
     if d.kind == "fatal":

@@ -16,10 +16,12 @@ SIGTERM/SIGUSR1 -> stop at the next level boundary -> exit 75.
   (``GAMESMAN_PREEMPT_GRACE_SECS``, default 30) is force-exited 124.
   Every payload write is tmp + os.replace and every seal an atomic
   manifest replace, so the worst case is an unsealed stray that resume
-  ignores.
+  ignores. The deadline first records the event and dumps the flight
+  recorder (obs/flightrec.py) from its timer thread, never from the
+  handler.
 
-The reference's preemption counter and flight-recorder dump belong to
-the observability layer, not ported yet.
+Every stop counts into ``gamesman_preempts_total{phase}`` and, given a
+logger, writes a ``{"phase": "preempt", ...}`` record.
 """
 
 from __future__ import annotations
@@ -28,16 +30,14 @@ import os
 import signal
 import sys
 import threading
+import time
 from typing import Optional
 
+from gamesmanmpi_tpu_torch.resilience.supervisor import WATCHDOG_EXIT_CODE
 from gamesmanmpi_tpu_torch.utils.env import env_float
 
 #: EX_TEMPFAIL: the solve stopped resumable under preemption grace.
 GRACE_EXIT_CODE = 75
-
-#: The force-exit code when the grace deadline passes (the reference
-#: watchdog's resumable-abort code).
-WATCHDOG_EXIT_CODE = 124
 
 #: Signals that request graceful preemption.
 GRACE_SIGNALS = (signal.SIGTERM, signal.SIGUSR1)
@@ -75,6 +75,13 @@ def _force_exit(grace_secs: float) -> None:  # pragma: no cover - kills
         f"[preempt] grace deadline ({grace_secs:.0f}s) expired before a "
         "level boundary; forcing resumable abort\n")
     sys.stderr.flush()
+    # Post-mortem first (timer thread, not the signal handler: taking the
+    # recorder's lock is legal here): what was in flight when the grace
+    # window closed.
+    from gamesmanmpi_tpu_torch.obs import flightrec
+
+    flightrec.record("preempt_deadline", grace_secs=grace_secs)
+    flightrec.dump("preempt_deadline")
     os._exit(WATCHDOG_EXIT_CODE)
 
 
@@ -116,11 +123,27 @@ def install_grace_handler():
     return restore
 
 
-def check(phase: str, level=None) -> None:
+def check(phase: str, level=None, logger=None) -> None:
     """Level-boundary preemption point: raise PreemptionRequested when a
     grace signal has arrived."""
     if not _requested:
         return
+    from gamesmanmpi_tpu_torch.obs import default_registry
+
+    default_registry().counter(
+        "gamesman_preempts_total",
+        "solves stopped at a level boundary by preemption grace",
+        phase=phase,
+    ).inc()
+    rec = {"phase": "preempt", "in_phase": phase,
+           "signum": _signum, "wall_time": time.time()}
+    if level is not None:
+        rec["level"] = int(level)
+    if logger is not None:
+        try:
+            logger.log(rec)
+        except Exception:  # noqa: BLE001 - the preemption must win
+            pass
     raise PreemptionRequested(
         f"grace signal {_signum} at {phase} boundary"
         + (f" (level {level})" if level is not None else ""))

@@ -29,7 +29,7 @@ from __future__ import annotations
 import sys
 import time
 
-from gamesmanmpi_tpu_torch.obs import default_registry
+from gamesmanmpi_tpu_torch.obs import default_registry, flightrec
 from gamesmanmpi_tpu_torch.resilience.faults import FatalFault, TransientFault
 from gamesmanmpi_tpu_torch.utils.env import env_float as _env_float
 from gamesmanmpi_tpu_torch.utils.env import env_int as _env_int
@@ -117,6 +117,13 @@ def retry_call(fn, *, point: str, reset=None, level=None, attempts=None,
             ).inc()
             if on_retry is not None:
                 on_retry(attempt, e)
+            # Retries are post-mortem gold: a death minutes after a burst
+            # of absorbed transients reads differently from one out of
+            # the blue.
+            flightrec.record(
+                "retry", point=point, attempt=attempt,
+                level=level, error=str(e)[:120],
+            )
             if logger is not None:
                 rec = {
                     "phase": "retry",

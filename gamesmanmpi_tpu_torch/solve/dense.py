@@ -53,6 +53,17 @@ is bound to ``<game>:dense``, each level's flat cells are sealed as they
 complete (``dense_NNNN.npz``), and a rerun rechains from the contiguous
 sealed run that ends at the top level, through the same path as
 ``solve(resume_cells=...)``.
+
+Records (``logger=``), the reference's: one ``dense_backward`` record per
+level (``classes``, ``class_size``), ``dense_backward_resume`` when a
+directory is resumed, and ``done``. Beside them each level runs under a
+``backward`` span that writes no record (the registry's
+``gamesman_span_seconds`` and the Chrome trace sink) and ends at the
+level's host copy when one is taken, and each seal under a
+``checkpoint`` span. ``progress`` is replaced per level for the
+heartbeat (``heartbeat_secs`` / ``GAMESMAN_HEARTBEAT_SECS``), the
+watchdog (``GAMESMAN_WATCHDOG_SECS``) and the ``/status`` server
+(``GAMESMAN_STATUS_PORT``), whose level schedule counts encodable cells.
 """
 
 from __future__ import annotations
@@ -66,10 +77,17 @@ import torch
 
 from gamesmanmpi_tpu_torch.core.values import LOSE, TIE
 from gamesmanmpi_tpu_torch.games.connect4 import Connect4
+from gamesmanmpi_tpu_torch.obs import (
+    SolveStatusTracker,
+    Span,
+    flightrec,
+    trace_span,
+)
 from gamesmanmpi_tpu_torch.ops.combine import combine_children
 from gamesmanmpi_tpu_torch.ops.window_gather import monotone_window_gather
+from gamesmanmpi_tpu_torch.solve.engine import record_solve, watched
 from gamesmanmpi_tpu_torch.utils.device import resolve_device
-from gamesmanmpi_tpu_torch.utils.env import env_opt
+from gamesmanmpi_tpu_torch.utils.env import env_float, env_opt
 
 
 def _profiles_for_level(width: int, height: int, level: int) -> np.ndarray:
@@ -660,13 +678,16 @@ class DenseSolver:
     reachability sweep that counts positions runs once per board per
     process. checkpointer: a utils/checkpoint.LevelCheckpointer to seal
     levels into and resume from. devices: shards of the mesh (module
-    docstring); more than the visible devices raises ValueError.
+    docstring); more than the visible devices raises ValueError. logger:
+    a utils/metrics logger for the per-level records; heartbeat_secs:
+    the heartbeat period (0 = off; None reads GAMESMAN_HEARTBEAT_SECS).
     """
 
     def __init__(self, game: Connect4, store_tables: bool = True,
                  block_elems: Optional[int] = None, device="cuda",
                  gather_mode: Optional[str] = None, checkpointer=None,
-                 devices: int = 1):
+                 devices: int = 1, logger=None,
+                 heartbeat_secs: Optional[float] = None):
         if not isinstance(game, Connect4):
             raise TypeError("DenseSolver requires a Connect4-family game")
         if game.sym:
@@ -683,6 +704,14 @@ class DenseSolver:
         self.game = game
         self.store_tables = store_tables
         self.checkpointer = checkpointer
+        self.logger = logger
+        if heartbeat_secs is None:
+            heartbeat_secs = env_float("GAMESMAN_HEARTBEAT_SECS", 0.0)
+        self.heartbeat_secs = float(heartbeat_secs)
+        #: replaced (never mutated) per level; read by the heartbeat,
+        #: watchdog and status threads
+        self.progress: dict = {"phase": "init"}
+        self.status_tracker = SolveStatusTracker()
         self.device = resolve_device(device)
         self.gather_mode = gather_mode
         self.devices = int(devices)
@@ -917,7 +946,9 @@ class DenseSolver:
 
     def solve(self, resume_cells: Optional[Dict[int, torch.Tensor]] = None
               ) -> DenseSolveResult:
-        """Run the backward sweep (then the reach count, once per board).
+        """Run the backward sweep (then the reach count, once per board)
+        under the optional heartbeat, the env-gated watchdog and the live
+        status server.
 
         resume_cells: level -> [P, C] uint8 cells of already solved levels
         (e.g. cells_from_reference of a reference solve). The sweep
@@ -927,6 +958,14 @@ class DenseSolver:
         resume cells come from its directory (a level mapped to None is
         sealed but not read), and each computed level is sealed.
         """
+        self.status_tracker.begin(game=self.game.name, engine="dense",
+                                  world=1, rank=0)
+        with watched(lambda: self.progress, self.logger, self.heartbeat_secs,
+                     lambda: self.status_tracker.snapshot(
+                         progress=self.progress)):
+            return self._solve_impl(resume_cells)
+
+    def _solve_impl(self, resume_cells) -> DenseSolveResult:
         g, t, ckpt = self.game, self.tables, self.checkpointer
         nc = t.ncells
         cuda = self.device.type == "cuda"
@@ -967,11 +1006,21 @@ class DenseSolver:
                     saved[L] = cells.cpu().numpy()
             child_flat = resume_cells[K].to(self.device).reshape(-1)
             start_L = K - 1
+            if self.logger is not None:
+                self.logger.log({"phase": "dense_backward_resume",
+                                 "levels_resumed": nc - K + 1,
+                                 "from_level": K})
         levels_resumed = nc - start_L
+        self.status_tracker.set_schedule(
+            {L: len(t.profiles[L]) * t.class_size[L]
+             for L in range(start_L + 1)})
         computed_encodable = 0
         nmiss: Dict[int, torch.Tensor] = {}
         for L in range(start_L, -1, -1):
             P, C = len(t.profiles[L]), t.class_size[L]
+            self.progress = {"phase": "backward", "level": L, "classes": P}
+            sp = Span("backward", log=False, level=L, classes=P,
+                      class_size=C)
             encodable_total += P * C
             computed_encodable += P * C
             level_cells, nm = self._backward_level(L, child_flat)
@@ -983,7 +1032,14 @@ class DenseSolver:
                 if saved is not None:
                     saved[L] = host
                 if ckpt is not None:
-                    ckpt.save_dense_level(L, host)
+                    with trace_span("checkpoint", level=L, kind="level"):
+                        ckpt.save_dense_level(L, host)
+            sp.end()
+            if self.logger is not None:
+                self.logger.log({"phase": "dense_backward", "level": L,
+                                 "classes": P, "class_size": C})
+            self.status_tracker.backward_level(L, P * C, sp.secs)
+            flightrec.boundary("backward", L)
 
         root_cell = int(child_flat[0])  # synchronises with the device
         value, remoteness = root_cell & 3, root_cell >> 2
@@ -1033,4 +1089,8 @@ class DenseSolver:
         if ckpt is not None:
             stats.update(ckpt.solve_stats())
         stats["reachable_per_level"] = counted
+        self.progress = {"phase": "done"}
+        if self.logger is not None:
+            self.logger.log({"phase": "done", **stats})
+        record_solve(g.name, positions, solve_secs)
         return DenseSolveResult(g, t, value, remoteness, saved, stats)

@@ -44,10 +44,24 @@ window), so it is idempotent; ``stats["retries"]`` counts the absorbed
 failures and ``gamesman_retries_total{point=...}`` carries them per
 point.
 
+Instrumentation, as in the reference: one ``forward`` and one
+``backward`` record per level (obs/tracing.Span into ``logger``, the
+registry and an installed Chrome trace sink), nested ``dedup``,
+``checkpoint`` and ``db_export`` spans, and a ``done`` record. Each span
+ends where the engine already waits for the device (the dedup count, a
+level's host copy), so it adds no synchronisation; a record carries only
+what the engine holds on the host. ``progress`` is replaced, never
+mutated, at every boundary: the heartbeat (``heartbeat_secs`` /
+``GAMESMAN_HEARTBEAT_SECS``), the watchdog (``GAMESMAN_WATCHDOG_SECS``,
+exit 124 on a stall) and the live ``/status`` server
+(``GAMESMAN_STATUS_PORT``) read it from their threads. Each boundary also
+runs the host-memory guard (resilience/memguard.py) and notes the level
+in the flight recorder (obs/flightrec.boundary).
+
 What the port leaves out of the reference's machinery: background
 precompiles and power-of-two capacity buckets (they bound XLA's compiled
 shapes; eager torch runs every level at its exact size), speculation,
-heartbeat, status server, memory guard and the fused/pingpong
+the analytic sort/gather byte and dispatch counts, and the fused/pingpong
 modes.
 
 Host synchronisation: one per forward level, inside ``torch.unique``
@@ -62,6 +76,7 @@ under ``paranoid``.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, NamedTuple, Optional
 
@@ -72,15 +87,30 @@ from gamesmanmpi_tpu_torch.core.bitops import SENTINEL
 from gamesmanmpi_tpu_torch.core.codec import unpack_cells
 from gamesmanmpi_tpu_torch.core.values import UNDECIDED
 from gamesmanmpi_tpu_torch.games.base import TensorGame
+from gamesmanmpi_tpu_torch.obs import (
+    Heartbeat,
+    SolveStatusTracker,
+    Span,
+    default_registry,
+    flightrec,
+    maybe_status_server,
+    trace_span,
+)
 from gamesmanmpi_tpu_torch.ops.combine import combine_children
 from gamesmanmpi_tpu_torch.ops.dedup import unique_tailed, with_sentinel_slot
 from gamesmanmpi_tpu_torch.ops.lookup import lookup_window
 from gamesmanmpi_tpu_torch.ops.provenance import gather_cells, uidx_from_inverse
-from gamesmanmpi_tpu_torch.resilience import faults, preempt
+from gamesmanmpi_tpu_torch.resilience import faults, memguard, preempt
 from gamesmanmpi_tpu_torch.resilience.retry import retry_call
+from gamesmanmpi_tpu_torch.resilience.supervisor import maybe_watchdog
 from gamesmanmpi_tpu_torch.store import TORN_SEAL_ERRORS as TORN_NPZ_ERRORS
 from gamesmanmpi_tpu_torch.utils.device import resolve_device
-from gamesmanmpi_tpu_torch.utils.env import env_bool, env_int
+from gamesmanmpi_tpu_torch.utils.env import env_bool, env_float, env_int
+
+#: Host bytes per position: a state on the int64 carrier, and a solved
+#: cell (the uint8 value and the int32 remoteness).
+_STATE_BYTES = 8
+_CELL_BYTES = 1 + 4
 
 
 class SolverError(RuntimeError):
@@ -277,16 +307,30 @@ class Solver:
     backward block and the device-store budget come from
     GAMESMAN_BACKWARD_BLOCK and GAMESMAN_DEVICE_STORE_MB. checkpointer:
     a utils/checkpoint.LevelCheckpointer to seal levels into and resume
-    from (with store_tables=False every level is still sealed).
+    from (with store_tables=False every level is still sealed). logger:
+    a utils/metrics logger for the per-level records. heartbeat_secs:
+    the heartbeat period (0 = off; None reads GAMESMAN_HEARTBEAT_SECS).
     """
 
     def __init__(self, game: TensorGame, *, device="cuda",
                  paranoid: bool = False, store_tables: bool = True,
                  use_provenance: Optional[bool] = None, checkpointer=None,
-                 level_sink=None):
+                 level_sink=None, logger=None,
+                 heartbeat_secs: Optional[float] = None):
         self.game = game
         self.checkpointer = checkpointer
         self.level_sink = level_sink
+        self.logger = logger
+        if heartbeat_secs is None:
+            heartbeat_secs = env_float("GAMESMAN_HEARTBEAT_SECS", 0.0)
+        self.heartbeat_secs = float(heartbeat_secs)
+        #: phase/level progress, replaced (never mutated) at every
+        #: boundary: the heartbeat, watchdog and status threads read it.
+        self.progress: dict = {"phase": "init"}
+        #: the live /status progress model (obs/status.py)
+        self.status_tracker = SolveStatusTracker()
+        #: host-transfer bytes of the solve (the records' bytes_host)
+        self.bytes_host = 0
         self.device = resolve_device(device)
         self.paranoid = paranoid
         self.store_tables = store_tables
@@ -310,7 +354,8 @@ class Solver:
         def on_retry(attempt, exc):
             self.retries += 1
 
-        return retry_call(fn, point=point, level=level, on_retry=on_retry)
+        return retry_call(fn, point=point, level=level, logger=self.logger,
+                          on_retry=on_retry)
 
     def _misses_check(self, k: int, misses) -> None:
         if self.paranoid and int(misses) > 0:
@@ -376,23 +421,42 @@ class Solver:
 
     def _finish_level(self, k: int, root: int, table: Optional[LevelTable],
                       host_states, values, rem,
-                      resolved: Dict[int, LevelTable]) -> None:
+                      resolved: Dict[int, LevelTable]) -> int:
         """A backward level's host tail. `table` is the sealed table when
         the level was loaded, None when it was resolved: then its table is
         downloaded (one .cpu() per array) when the result keeps it, the
-        level sink takes it or the checkpoint seals it, and sealed."""
+        level sink takes it or the checkpoint seals it, and sealed.
+        Returns the bytes of values and remoteness it downloaded."""
         keep = self.store_tables or k == root
         resolved_here = table is None
+        downloaded = 0
         if resolved_here and (keep or self.checkpointer is not None
                               or self.level_sink is not None):
             table = LevelTable(host_states(), values.cpu().numpy(),
                                rem.cpu().numpy())
+            downloaded = table.states.shape[0] * _CELL_BYTES
         if keep:
             resolved[k] = table
         if self.level_sink is not None:
-            self.level_sink(k, table)
+            with trace_span("db_export", level=k,
+                            n=int(table.states.shape[0])):
+                self.level_sink(k, table)
         if self.checkpointer is not None and resolved_here:
-            self.checkpointer.save_level(k, table)
+            with trace_span("checkpoint", level=k, kind="level"):
+                self.checkpointer.save_level(k, table)
+        return downloaded
+
+    def _boundary(self, phase: str, k: int, **progress) -> None:
+        """A level boundary: replace ``progress``, then the preemption
+        point and the host-memory guard (everything before it is sealed
+        or sealable)."""
+        self.progress = {"phase": phase, "level": k, **progress}
+        preempt.check(phase, level=k, logger=self.logger)
+        memguard.check(phase, level=k, logger=self.logger)
+
+    def _save_frontier(self, k: int, host_states) -> None:
+        with trace_span("checkpoint", level=k, kind="frontier"):
+            self.checkpointer.save_frontier_level(k, host_states)
 
     # ---------------------------------------------------------- fast path
 
@@ -427,12 +491,13 @@ class Solver:
                 np.asarray(init, dtype=np.int64))).to(dev)
             levels[k] = _Level(frontier.numel(), dev=frontier)
             if ckpt is not None:
-                ckpt.save_frontier_level(k, levels[k].host_states())
+                self._save_frontier(k, levels[k].host_states())
         stored = frontier.numel() * 8
         while True:
-            # Level boundary: everything before this level is sealed.
-            preempt.check("forward", level=k)
             rec = levels[k]
+            sp = Span("forward", logger=self.logger, level=k)
+            # Level boundary: everything before this level is sealed.
+            self._boundary("forward", k, frontier=rec.n)
             states = rec.dev if rec.dev is not None else frontier
 
             def _step(states=states, k=k):
@@ -442,8 +507,11 @@ class Solver:
                     return expand_provenance(g, states)
                 return (*expand_unique(g, states), None, None)
 
-            uniq, n, uidx, prim = self._retry("engine.forward", _step,
-                                              level=k)
+            # The expand and the dedup's sort retire at the unique count's
+            # host sync, inside the step: what this span times.
+            with trace_span("dedup", level=k):
+                uniq, n, uidx, prim = self._retry("engine.forward", _step,
+                                                  level=k)
             if uidx is not None:
                 extra = prim.numel() + uidx.numel() * 4
                 if n > 0 and stored + extra <= self.device_store_bytes:
@@ -451,6 +519,11 @@ class Solver:
                     stored += extra
                     self.provenance_levels += 1
             if n == 0:
+                # The terminal probe: its trace event is kept, but no
+                # JSONL record (the reference writes none).
+                sp.end(log=False)
+                self.status_tracker.forward_level(k, rec.n, sp.secs)
+                flightrec.boundary("forward", k)
                 break
             self._check_level(k + 1)
             nxt = _Level(n, dev=uniq)
@@ -463,7 +536,13 @@ class Solver:
                 stored += n * 8
             levels[k + 1] = nxt
             if ckpt is not None:
-                ckpt.save_frontier_level(k + 1, nxt.host_states())
+                self._save_frontier(k + 1, nxt.host_states())
+            # The next level's download (a checkpoint seal or a spill).
+            host_bytes = n * _STATE_BYTES if nxt.host is not None else 0
+            self.bytes_host += host_bytes
+            sp.end(frontier=rec.n, children=n, bytes_host=host_bytes)
+            self.status_tracker.forward_level(k, rec.n, sp.secs)
+            flightrec.boundary("forward", k)
             frontier = uniq
             k += 1
         return levels
@@ -474,11 +553,15 @@ class Solver:
         resolved: Dict[int, LevelTable] = {}
         prev = None  # (states, values, remoteness) of level k+1 on device
         for k in sorted(levels, reverse=True):
-            preempt.check("backward", level=k)
             rec = levels[k]
+            sp = Span("backward", logger=self.logger, level=k)
+            self._boundary("backward", k, n=rec.n)
+            uploaded = rec.dev is None
             states = (rec.dev if rec.dev is not None
                       else torch.from_numpy(rec.host).to(dev))
+            had_host = rec.host is not None
             table = self._load_sealed(k, rec.host_states)
+            resumed = table is not None
             if table is not None:
                 values = torch.from_numpy(table.values).to(dev)
                 rem = torch.from_numpy(table.remoteness).to(dev)
@@ -496,12 +579,21 @@ class Solver:
                 misses.append(miss)
                 self._misses_check(k, miss)
             prev = (states, values, rem)
-            self._finish_level(k, root, table, rec.host_states, values, rem,
-                               resolved)
+            host_bytes = self._finish_level(k, root, table, rec.host_states,
+                                            values, rem, resolved)
+            if uploaded:
+                host_bytes += rec.n * _STATE_BYTES
+            if not had_host and rec.host is not None:
+                host_bytes += rec.n * _STATE_BYTES
+            self.bytes_host += host_bytes
             # Release the forward copies and provenance of this level.
             rec.dev = rec.prim = rec.uidx = None
             if not self.store_tables:
                 rec.host = None
+            sp.end(n=rec.n, resumed=resumed, bytes_host=host_bytes)
+            self.status_tracker.backward_level(k, rec.n, sp.secs,
+                                               resumed=resumed)
+            flightrec.boundary("backward", k)
         return resolved
 
     # ------------------------------------------------------- generic path
@@ -514,7 +606,9 @@ class Solver:
             if k not in pools:
                 k += 1
                 continue
-            preempt.check("forward", level=k)
+            n = int(pools[k].shape[0])
+            sp = Span("forward", logger=self.logger, level=k)
+            self._boundary("forward", k, frontier=n)
 
             def _step(k=k):
                 faults.fire("engine.forward", level=k)
@@ -523,13 +617,20 @@ class Solver:
                 uniq, kid_levels = expand_with_levels(g, frontier)
                 return uniq.cpu().numpy(), kid_levels.cpu().numpy()
 
-            kids, kid_levels = self._retry("engine.forward", _step, level=k)
-            for lv in np.unique(kid_levels):
-                lv = int(lv)
-                self._check_level(lv)
-                batch = kids[kid_levels == lv]
-                pools[lv] = (np.union1d(pools[lv], batch) if lv in pools
-                             else batch)
+            # Two-stage dedup: the step's sort-unique (its wait is the
+            # download) and the host merge into per-level pools.
+            with trace_span("dedup", level=k):
+                kids, kid_levels = self._retry("engine.forward", _step,
+                                               level=k)
+                for lv in np.unique(kid_levels):
+                    lv = int(lv)
+                    self._check_level(lv)
+                    batch = kids[kid_levels == lv]
+                    pools[lv] = (np.union1d(pools[lv], batch) if lv in pools
+                                 else batch)
+            sp.end(frontier=n, children=int(kids.shape[0]))
+            self.status_tracker.forward_level(k, n, sp.secs)
+            flightrec.boundary("forward", k)
             k += 1
 
     def _backward_generic(self, pools: Dict[int, np.ndarray], root: int,
@@ -538,9 +639,12 @@ class Solver:
         resolved: Dict[int, LevelTable] = {}
         cache: Dict[int, tuple] = {}  # level -> device (states, values, rem)
         for k in sorted(pools, reverse=True):
-            preempt.check("backward", level=k)
+            n = int(pools[k].shape[0])
+            sp = Span("backward", logger=self.logger, level=k)
+            self._boundary("backward", k, n=n)
             states = torch.from_numpy(pools[k]).to(dev)
             table = self._load_sealed(k, lambda k=k: pools[k])
+            resumed = table is not None
             if table is not None:
                 values = torch.from_numpy(table.values).to(dev)
                 rem = torch.from_numpy(table.remoteness).to(dev)
@@ -556,8 +660,14 @@ class Solver:
                                                 level=k)
                 misses.append(miss)
                 self._misses_check(k, miss)
-            self._finish_level(k, root, table, lambda k=k: pools[k], values,
-                               rem, resolved)
+            # The pool uploads every level; its states never download.
+            host_bytes = n * _STATE_BYTES + self._finish_level(
+                k, root, table, lambda k=k: pools[k], values, rem, resolved)
+            self.bytes_host += host_bytes
+            sp.end(n=n, resumed=resumed, bytes_host=host_bytes)
+            self.status_tracker.backward_level(k, n, sp.secs,
+                                               resumed=resumed)
+            flightrec.boundary("backward", k)
             cache[k] = (states, values, rem)
             # Levels deeper than the lookback window are never read again.
             for done in [d for d in cache if d > k + g.max_level_jump]:
@@ -567,6 +677,23 @@ class Solver:
     # -------------------------------------------------------------- solve
 
     def solve(self) -> SolveResult:
+        """The solve body under the optional heartbeat, the env-gated
+        watchdog and the live status server, which all read
+        ``progress``."""
+        self.status_tracker.begin(game=self.game.name, engine="classic",
+                                  world=1, rank=0)
+        with watched(lambda: self.progress, self.logger,
+                     self.heartbeat_secs, self._status_payload):
+            return self._solve_impl()
+
+    def _status_payload(self) -> dict:
+        """The /status body (HTTP handler threads: reads only replaced
+        state)."""
+        snap = self.status_tracker.snapshot(progress=self.progress)
+        snap["retries"] = self.retries
+        return snap
+
+    def _solve_impl(self) -> SolveResult:
         g, ckpt = self.game, self.checkpointer
         cuda = self.device.type == "cuda"
         if cuda:
@@ -595,6 +722,9 @@ class Solver:
             t_forward = time.perf_counter() - t0
             num_positions = sum(rec.n for rec in levels.values())
             nlevels = len(levels)
+            # The schedule is fixed: /status's ETA knows the rest exactly.
+            self.status_tracker.set_schedule(
+                {k: rec.n for k, rec in levels.items()})
             resolved = self._backward_fast(levels, start, misses)
         else:
             if saved is not None:
@@ -607,6 +737,8 @@ class Solver:
             t_forward = time.perf_counter() - t0
             num_positions = sum(int(a.shape[0]) for a in pools.values())
             nlevels = len(pools)
+            self.status_tracker.set_schedule(
+                {k: int(a.shape[0]) for k, a in pools.items()})
             resolved = self._backward_generic(pools, start, misses)
         total_misses = int(sum(misses)) if misses else 0  # one final sync
         t_total = time.perf_counter() - t0
@@ -633,14 +765,51 @@ class Solver:
             "provenance_levels": self.provenance_levels,
             "misses": total_misses,
             "retries": self.retries,
+            "bytes_host": self.bytes_host,
             # Device memory is a card metric: None for a CPU solve.
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(self.device)
                                if cuda else None),
         }
         if ckpt is not None:
             stats.update(ckpt.solve_stats())
+        self.progress = {"phase": "done"}
+        if self.logger is not None:
+            self.logger.log({"phase": "done", **stats})
+        record_solve(g.name, num_positions, t_total)
         return SolveResult(g, int(root.values[i]), int(root.remoteness[i]),
                            resolved, stats)
+
+
+@contextlib.contextmanager
+def watched(progress, logger, heartbeat_secs: float, status_payload=None):
+    """The threads that watch a solve, all reading ``progress()`` (a dict
+    the engine replaces, never mutates): the heartbeat when
+    heartbeat_secs > 0, the watchdog when GAMESMAN_WATCHDOG_SECS > 0 and,
+    given a payload, the /status server when GAMESMAN_STATUS_PORT is set.
+    Yields the status server (None when off)."""
+    hb = (Heartbeat(heartbeat_secs, progress=progress, logger=logger).start()
+          if heartbeat_secs > 0 else None)
+    wd = maybe_watchdog(progress, logger=logger)
+    srv = (maybe_status_server(status_payload)
+           if status_payload is not None else None)
+    try:
+        yield srv
+    finally:
+        for watcher in (srv, hb, wd):
+            if watcher is not None:
+                watcher.stop()
+
+
+def record_solve(game_name: str, positions: int, secs: float) -> None:
+    """Solve-level registry rollups (what a /metrics scrape or a
+    --metrics-out dump aggregates over every solve of the process)."""
+    reg = default_registry()
+    reg.counter("gamesman_solves_total", "completed solves",
+                game=game_name).inc()
+    reg.counter("gamesman_solve_positions_total",
+                "reachable positions solved", game=game_name).inc(positions)
+    reg.histogram("gamesman_solve_seconds", "wall seconds per full solve",
+                  game=game_name).observe(secs)
 
 
 def solve(game: TensorGame, **kwargs) -> SolveResult:

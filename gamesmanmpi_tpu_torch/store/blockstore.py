@@ -25,8 +25,9 @@ blocked on store I/O (synchronous loads, waits on in-flight prefetches,
 drains, inline writes). The counters are read through
 :meth:`BlockStore.stats` and land in the ``gamesman_store_*`` registry
 series (docs/OBSERVABILITY.md); a read under an active query trace
-records a ``store_read`` span (obs/qtrace.py). The reference's
-flight-recorder events wait for the flight recorder.
+records a ``store_read`` span (obs/qtrace.py). A failed prefetch or
+write-behind payload is a ``store_read_error`` / ``store_write_error``
+event in the flight recorder (obs/flightrec.py).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import os
 import threading
 import time
 
-from gamesmanmpi_tpu_torch.obs import default_registry
+from gamesmanmpi_tpu_torch.obs import default_registry, flightrec
 from gamesmanmpi_tpu_torch.obs.qtrace import qspan
 from gamesmanmpi_tpu_torch.resilience import faults
 from gamesmanmpi_tpu_torch.store.cache import TieredCache
@@ -279,6 +280,9 @@ class BlockStore:
             try:
                 value = loader()
             except BaseException as e:  # noqa: BLE001 - re-raised at read
+                # A torn block surfacing minutes later reads back to this.
+                flightrec.record("store_read_error", key=str(key)[:120],
+                                 error=str(e)[:120])
                 entry.error = e
                 with self._lock:
                     self._inflight.pop(key, None)
@@ -376,6 +380,10 @@ class BlockStore:
                 # resolves the ticket instead of killing this thread.
                 faults.fire("store.writebehind", path=ticket.path)
             except BaseException as e:  # noqa: BLE001 - surfaced at drain
+                flightrec.record(
+                    "store_write_error",
+                    path=str(ticket.path)[:160], error=str(e)[:120],
+                )
                 with self._lock:
                     self._wb_writes += 1
                     if self._wb_failed is None:

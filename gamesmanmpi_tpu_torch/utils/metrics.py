@@ -1,7 +1,12 @@
-"""Record loggers (port of gamesmanmpi_tpu/utils/metrics.py, the ones
-serving uses): ``JsonlLogger`` for ``serve --jsonl``, ``StdoutLogger``
-and ``TeeLogger`` for ``serve -v``, and ``TagLogger``, which stamps each
-fleet worker's records with ``worker=<id>``."""
+"""Structured per-level records (port of gamesmanmpi_tpu/utils/metrics.py).
+
+One record per solve phase per level — level, frontier size, seconds —
+emitted as JSONL (``--jsonl``) and optionally as human-readable lines
+(``-v``): ``JsonlLogger``, ``StdoutLogger`` and ``TeeLogger``.
+``TagLogger`` stamps constant fields, the serving fleet's
+``worker=<id>``; ``RankLogger`` stamps ``rank=<i>`` on each process of a
+multi-process solve.
+"""
 
 from __future__ import annotations
 
@@ -99,3 +104,16 @@ class TeeLogger(_ClosingLogger):
     def close(self) -> None:
         for l in self.loggers:
             l.close()
+
+
+class RankLogger(TagLogger):
+    """Stamp every record with the emitting process's rank.
+
+    A multi-process solve writes one JSONL stream per rank (same
+    schema); without the stamp the merged streams are rank-ambiguous and
+    tools/obs_report.py cannot tell "two ranks timed the same level"
+    (wall-clock: take the max) from "one rank retried it" (accumulate).
+    """
+
+    def __init__(self, inner, rank: int):
+        super().__init__(inner, rank=int(rank))

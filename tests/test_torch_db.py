@@ -500,9 +500,9 @@ def test_cli_query_and_export_refuse_bad_inputs(tmp_path, capsys):
     assert "not a solved-position database" in capsys.readouterr().err
     assert cli.main(["export-db", "nosuchgame", "--out",
                      str(tmp_path / "x"), "--device", "cpu"]) == 2
-    assert cli.main(["export-db", "examples/specs/tictactoe_3x3.json",
+    assert cli.main(["export-db", "examples/specs/no_such_spec.json",
                      "--out", str(tmp_path / "x"), "--device", "cpu"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert "cannot read game spec file" in capsys.readouterr().err
     assert cli.main(["export-db", "tictactoe", "--from-checkpoint",
                      str(tmp_path / "missing"), "--out", str(tmp_path / "x"),
                      "--device", "cpu"]) == 2
@@ -511,17 +511,31 @@ def test_cli_query_and_export_refuse_bad_inputs(tmp_path, capsys):
 
 
 def test_gamespec_db_refused(tmp_path, tmp_path_factory, capsys):
-    """A manifest with game_spec is a compiled-game DB: the game compiler
-    is not ported, so the reader refuses it and the CLI exits 2."""
+    """A manifest with game_spec is a compiled-game DB: the reader
+    rebuilds its game from the embedded spec (the port's game compiler)
+    and `query` answers from it; an embedded spec that does not compile
+    is refused, and the CLI exits 2."""
+    from gamesmanmpi_tpu_torch.gamedsl import load_spec
+
+    spec = load_spec(str(REPO / "examples" / "specs" / "tictactoe_3x3.json"))
     d = tmp_path / "spec_db"
     shutil.copytree(port_db("tictactoe", False, tmp_path_factory), d)
     m = json.loads((d / "manifest.json").read_text())
+    m["game_spec"] = spec.to_doc()
+    m["spec_sha256"] = spec.spec_hash
+    (d / "manifest.json").write_text(json.dumps(m))
+    with DbReader(d, device="cpu") as r:
+        assert r.game.spec_hash == spec.spec_hash
+        assert r.game.name == m["game"]
+    rc, lines = run_cli(cli.main, ["query", str(d), "0", "--device", "cpu"])
+    assert rc == 0
+    assert lines == ["query 0: value=TIE remoteness=9 best=0x1"]
     m["game_spec"] = {"name": "tictactoe_3x3"}
     (d / "manifest.json").write_text(json.dumps(m))
-    with pytest.raises(DbFormatError, match="not yet ported"):
+    with pytest.raises(DbFormatError, match="not compilable"):
         DbReader(d, device="cpu")
     assert cli.main(["query", str(d), "0", "--device", "cpu"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert "not compilable" in capsys.readouterr().err
 
 
 def test_db_entry_points_default_to_the_card(monkeypatch, tmp_path,

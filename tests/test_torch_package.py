@@ -3,6 +3,7 @@ boundary, its device policy, its kernel build and chip_smoke.py's refusal
 to run without a card."""
 
 import io
+import json
 import os
 import shutil
 import subprocess
@@ -14,7 +15,7 @@ import torch
 
 from gamesmanmpi_tpu import cli as jax_cli
 from gamesmanmpi_tpu_torch import cli
-from gamesmanmpi_tpu_torch.games import Connect4, NotPortedError, get_game
+from gamesmanmpi_tpu_torch.games import Connect4, get_game
 from gamesmanmpi_tpu_torch.kernels import build
 from gamesmanmpi_tpu_torch.utils.device import resolve_device
 
@@ -132,15 +133,29 @@ def test_default_device_is_the_card(monkeypatch, capsys):
     assert resolve_device("cpu").type == "cpu"
 
 
+#: a GameSpec whose k fits no line on its board (finding GS103)
+BAD_SPEC = {"gamedsl": 1, "name": "far", "board": {"width": 3, "height": 3},
+            "moves": {"family": "place"}, "win": {"kind": "k_in_line",
+                                                  "k": 5}}
+
+
 @pytest.mark.parametrize("argv,needle", [
-    (["solve", "examples/specs/tictactoe_3x3.json"], "not yet ported"),
+    (["solve", "BAD_SPEC", "--device", "cpu"], "not compilable"),
     (["solve", "nosuchgame"], "bad game spec"),
     (["solve", "connect4:w=3,h=3,sym=maybe"], "bad game spec"),
     (["solve", "chomp:w=4,h=3,sym=1", "--device", "cpu"], "square board"),
 ])
-def test_unported_and_bad_specs_exit_2(argv, needle, capsys):
+def test_unported_and_bad_specs_exit_2(argv, needle, capsys, tmp_path):
+    """A GameSpec compiles since the game compiler was ported; one with
+    error findings exits 2 naming them, as a bad built-in spec does."""
+    bad = tmp_path / "bad.json"
+    bad.write_text(json.dumps(BAD_SPEC))
+    argv = [str(bad) if a == "BAD_SPEC" else a for a in argv]
     assert cli.main(argv) == 2
-    assert needle in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert needle in err
+    if needle == "not compilable":
+        assert "GS103" in err
 
 
 @pytest.mark.parametrize("argv,answer", [
@@ -168,8 +183,10 @@ def test_get_game_grammar():
                                                       "connect3_5x4")
     assert get_game("connect4").name == "connect4_7x6"
     assert get_game("connect4:w=4,h=4,sym=1").sym
-    with pytest.raises(NotPortedError):
-        get_game("examples/specs/gomoku_4x3x3.json")
+    # A GameSpec file compiles (gamedsl): the description-only gomoku.
+    gomoku = get_game("examples/specs/gomoku_4x3x3.json")
+    assert (gomoku.name, gomoku.state_bits, gomoku.max_moves) == (
+        "gomoku_4x3x3", 24, 12)
     with pytest.raises(ValueError):
         get_game("connect4:w=9,h=7")
 
