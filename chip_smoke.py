@@ -173,6 +173,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              byte for byte; a card reader rebuilds the game from the
              embedded spec, and it and `query` answer as the solve.
 
+17. campaign and registry 5x5 — self-healing campaigns and the DB
+             registry, as CLI children (`python -m
+             gamesmanmpi_tpu_torch.resilience.campaign`, `... registry`),
+             raw checkpoint files: (a) `--engine dense` killed by
+             GAMESMAN_FAULTS=ckpt.save_level:kill:5 after its 5th sealed
+             level; attempt 2 resumes 5 levels, launches the gather on the
+             rest (its `done` record's `gather_launches`), and every dense
+             level equals phase 6's cells; the ledger reads killed, then
+             complete. (b) `--devices 2` (GAMESMAN_FAKE_DEVICES=2) with
+             `--chaos sharded.backward:oom:2`: a campaign_reshard record
+             2 -> 4 shards with the store cache halved, attempt 2 at 4
+             shards over the 2-shard tree (its `reshard` record from [2]),
+             its --table-out identical to phase 9's tables. (c) The
+             campaign SIGTERMed in attempt 1's backward (slowed by an
+             engine.backward delay) exits 75, the attempt 75; the same
+             command again completes; while the attempt runs, the
+             campaign process has no CUDA mapped (and is not in
+             `nvidia-smi --query-compute-apps`), the attempt has; one
+             scrape of the campaign's --status-port shows `kind:
+             campaign` with the attempt's status under `solve`. (d)
+             `registry serve --jobs`, `POST /solve connect4:w=5,h=5`,
+             `registry run-jobs --once`: the published epoch is sha256 of
+             phase 12's v1 manifest.json and every file's sha256 is phase
+             12's; the pull client installs it into a fresh directory and
+             a rerun is a no-op; 312 sampled positions through `DbReader`
+             equal phase 9's tables. Each run's seconds and the peak
+             resident set of the campaign and of its largest child.
+
 Then the script's seconds, the kernels line, the `nvidia-smi`
 name/power-limit line, and last
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or of the JAX
@@ -2240,8 +2268,10 @@ def check_instrumented(tag, lines, records, trace, metrics, snaps, want,
            if r["phase"] != "heartbeat"]
     if got != want:
         raise AssertionError(f"{tag}: records {got} != {want}")
-    done = records[-1]
-    rate = done["positions"] / done["secs_total"]
+    # The heartbeat thread stops after the engine logs `done`, so a last
+    # beat may follow it in the stream (the reference's order too).
+    done = next(r for r in reversed(records) if r["phase"] == "done")
+    rate =done["positions"] / done["secs_total"]
     line = next(ln for ln in lines if ln.startswith("throughput:"))
     if line != f"throughput: {rate:.0f} positions/sec":
         raise AssertionError(f"{tag}: {line} != records' {rate:.0f}")
@@ -2491,6 +2521,342 @@ def spec_instrumentation_phase(classic_result, dense_result, tmp, spec=C55,
          secs=time.perf_counter() - t0)
 
 
+#: The campaign runner and the CLI, each as its users run it.
+CAMPAIGN = [sys.executable, "-m", "gamesmanmpi_tpu_torch.resilience.campaign"]
+PORT_CLI = [sys.executable, "-m", "gamesmanmpi_tpu_torch"]
+
+
+def children_of(pid):
+    """Pids whose parent is `pid` (a scan of /proc)."""
+    out = []
+    for d in pathlib.Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            stat = (d / "stat").read_text()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(d.name))
+    return out
+
+
+def maps_cuda(pid):
+    """Does process `pid` have libcuda (CUDA's user-mode library) mapped
+    (None where /proc/<pid>/maps cannot be read)?"""
+    try:
+        return "libcuda.so" in pathlib.Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return None
+
+
+class TreeRun:
+    """A child process and its children, sampled every 0.1 s until it
+    exits: the peak resident set of the child itself and of the largest
+    grandchild, and every grandchild pid seen. `tick(run)` runs at each
+    sample (the phase's probes)."""
+
+    def __init__(self, argv, env, tick=None, timeout=900):
+        self.argv, self.tick, self.timeout = argv, tick, timeout
+        self.env = dict(os.environ, **env)
+        self.env.pop("GAMESMAN_HOST_MEM_LIMIT_MB", None)
+        self.peak = self.child_peak = 0
+        self.seen = set()
+
+    def run(self):
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(self.argv, cwd=REPO, env=self.env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        import threading
+
+        out = {}
+        reader = threading.Thread(target=lambda: out.update(zip(
+            ("out", "err"), self.proc.communicate())), daemon=True)
+        reader.start()
+        try:
+            deadline = time.monotonic() + self.timeout
+            while self.proc.poll() is None:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{self.argv} ran past "
+                                         f"{self.timeout} s")
+                self.peak = max(self.peak, rss_bytes(self.proc.pid) or 0)
+                kids = children_of(self.proc.pid)
+                self.seen.update(kids)
+                for k in kids:
+                    self.child_peak = max(self.child_peak, rss_bytes(k) or 0)
+                if self.tick is not None:
+                    self.tick(self)
+                time.sleep(0.1)
+        finally:
+            stop(self.proc)
+            reader.join(timeout=60)
+        self.t_end = time.perf_counter()
+        self.secs = self.t_end - t0
+        self.out, self.err = out.get("out", ""), out.get("err", "")
+        return self
+
+    def fields(self):
+        return dict(rc=self.proc.returncode, secs=self.secs,
+                    parent_peak_rss_bytes=self.peak,
+                    child_peak_rss_bytes=self.child_peak)
+
+
+def ledger_of(ck):
+    return [json.loads(line) for line in
+            (pathlib.Path(ck) / "campaign.jsonl").read_text().splitlines()]
+
+
+def attempt_causes(ck):
+    return [r["cause"] for r in ledger_of(ck)
+            if r["phase"] == "campaign_attempt"]
+
+
+def attempt_report(ck, attempt):
+    out = pathlib.Path(ck) / "logs" / f"attempt_{attempt:03d}.out"
+    return report_answer(out.read_text().splitlines())
+
+
+def table_out_equal(path, result):
+    """A --table-out file against a solve's tables, level by level."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch.core.bitops import to_reference
+    from gamesmanmpi_tpu_torch.core.codec import pack_cells_np
+
+    with np.load(path) as z:
+        if sorted(z.files) != sorted(
+                f"{w}_{k:04d}" for k in result.levels
+                for w in ("states", "cells")):
+            raise AssertionError(f"{path}: members {sorted(z.files)[:4]}...")
+        for k, t in result.levels.items():
+            want_s = to_reference(t.states, result.game)
+            want_c = pack_cells_np(t.values, t.remoteness)
+            got_s, got_c = z[f"states_{k:04d}"], z[f"cells_{k:04d}"]
+            if got_s.dtype != want_s.dtype or got_s.tobytes() != \
+                    want_s.tobytes() or got_c.tobytes() != want_c.tobytes():
+                raise AssertionError(f"{path}: level {k} differs")
+
+
+def campaign_registry_phase(result, dense_result, tmp, v1, spec=C55,
+                            answer=(69763700, "TIE", 25), extra=(),
+                            kill=5, delay="0.3", samples=312):
+    """Phase 17: self-healing campaigns and the DB registry, as CLI
+    children. `result` is phase 9's classic solve of `spec`,
+    `dense_result` phase 6's dense one and `v1` phase 12's streamed DB;
+    `extra` (`--device cpu`) and a smaller `spec` rehearse the phase on
+    the CPU. -> the gather's launches in the dense campaign."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch.db import DbReader
+    from gamesmanmpi_tpu_torch.obs.status import fetch_status
+    from gamesmanmpi_tpu_torch.registry.pull import fetch_catalog, pull_db
+    from gamesmanmpi_tpu_torch.resilience.campaign import checkpoint_progress
+    from gamesmanmpi_tpu_torch.store import read_npz_members
+
+    t0 = time.perf_counter()
+    tmp = tmp / "phase17"
+    tmp.mkdir()
+    extra = list(extra)
+    on_card = "cpu" not in extra
+    raw = {"GAMESMAN_CKPT_COMPRESS": "0",
+           "GAMESMAN_CAMPAIGN_BACKOFF_BASE_SECS": "0.5"}
+    fields = {}
+
+    # (a) Dense: killed after its `kill`-th sealed level, resumed.
+    D, J = tmp / "dense", tmp / "dense.jsonl"
+    run = TreeRun(CAMPAIGN + [spec, "--checkpoint-dir", str(D), "--chaos",
+                              f"ckpt.save_level:kill:{kill}",
+                              "--attempt-timeout", "600", "--", "--engine",
+                              "dense", "--jsonl", str(J), *extra], raw).run()
+    if run.proc.returncode != 0 or attempt_causes(D) != ["killed",
+                                                         "complete"]:
+        raise AssertionError(f"dense campaign: rc {run.proc.returncode}, "
+                             f"causes {attempt_causes(D)}\n{run.err[-3000:]}")
+    done = [r for r in jsonl(J) if r["phase"] == "done"][-1]
+    launches = done["gather_launches"]
+    if (attempt_report(D, 2) != answer or done["levels_resumed"] != kill
+            or (launches > 0) != on_card):
+        raise AssertionError(f"dense campaign: {attempt_report(D, 2)}, "
+                             f"resumed {done['levels_resumed']}, "
+                             f"{launches} launches")
+    for L, cells in sorted(dense_result.cells.items()):
+        (got,) = read_npz_members(D / f"dense_{L:04d}.npz", ("cells",))
+        if got.tobytes() != cells.tobytes():
+            raise AssertionError(f"dense campaign: level {L} differs from "
+                                 "phase 6's cells")
+    fields["a_dense"] = dict(
+        run.fields(), causes=attempt_causes(D), gather_launches=launches,
+        levels_resumed=done["levels_resumed"],
+        resumed_secs_backward=done["secs_backward"],
+        attempt_secs=[r["wall_secs"] for r in ledger_of(D)
+                      if r["phase"] == "campaign_attempt"],
+        cells_identical_levels=len(dense_result.cells))
+    emit("campaign dense (a)", **fields["a_dense"])
+    shutil.rmtree(D)
+
+    # (b) Sharded at 2 shards, oom at the 2nd backward step: escalated to
+    # 4 shards (GAMESMAN_FAKE_DEVICES pinned) with the cache halved.
+    S, J, T = tmp / "sharded", tmp / "sharded.jsonl", tmp / "sharded.npz"
+    run = TreeRun(CAMPAIGN + [spec, "--checkpoint-dir", str(S), "--chaos",
+                              "sharded.backward:oom:2", "--attempt-timeout",
+                              "600", "--", "--devices", "2", "--jsonl",
+                              str(J), "--table-out", str(T), *extra],
+                  dict(raw, GAMESMAN_FAKE_DEVICES="2")).run()
+    records = ledger_of(S)
+    resh = [r for r in records if r["phase"] == "campaign_reshard"]
+    attempts = [r for r in records if r["phase"] == "campaign_attempt"]
+    reshard = [r for r in jsonl(J) if r["phase"] == "reshard"]
+    if (run.proc.returncode != 0 or len(resh) != 1
+            or (resh[0]["from_shards"], resh[0]["to_shards"]) != (2, 4)
+            or resh[0]["to_cache_mb"] != resh[0]["from_cache_mb"] // 2
+            or [r["cause"] for r in attempts] != ["oom", "complete"]
+            or (attempts[1]["shards"], attempts[1]["sealed_shards"]) != (4, 2)
+            or not reshard or reshard[-1]["from_shards"] != [2]):
+        raise AssertionError(f"oom campaign: rc {run.proc.returncode}, "
+                             f"{resh}, {attempts}, {reshard}\n"
+                             f"{run.err[-3000:]}")
+    table_out_equal(T, result)
+    done = [r for r in jsonl(J) if r["phase"] == "done"][-1]
+    fields["b_oom"] = dict(
+        run.fields(), reshard=resh[0], resharded_from=reshard[-1][
+            "from_shards"], resumed_secs_backward=done.get("secs_backward"),
+        attempt_secs=[r["wall_secs"] for r in attempts],
+        tables_equal_phase9=True)
+    emit("campaign oom (b)", **fields["b_oom"])
+    shutil.rmtree(S)
+    T.unlink()
+
+    # (c) Preemption: SIGTERM to the campaign in attempt 1's backward
+    # (slowed by a delay), exit 75; the same command again completes.
+    P, addr = tmp / "preempt", tmp / "campaign_addr"
+    argv = CAMPAIGN + [spec, "--checkpoint-dir", str(P), "--chaos",
+                       f"engine.backward:delay={delay}:always",
+                       "--status-port", "0", "--", *extra]
+    env = dict(raw, GAMESMAN_STATUS_ADDR_FILE=str(addr))
+    probe = {}
+
+    def preempt(run):
+        if "signalled" in probe or not addr.exists():
+            return
+        if "scrape" not in probe:
+            got = fetch_status(addr.read_text().strip(), timeout=5)
+            if got and got.get("solve"):
+                probe["scrape"] = got
+        if len(checkpoint_progress(P)["solved_levels"]) < 2:
+            return
+        kids = children_of(run.proc.pid)
+        probe["attempt_pids"] = kids
+        probe["smi_pids"] = sorted(smi_apps())
+        probe["maps_cuda"] = {"campaign": maps_cuda(run.proc.pid),
+                              "attempt": [maps_cuda(k) for k in kids]}
+        if "scrape" in probe:
+            probe["signalled"] = time.perf_counter()
+            run.proc.send_signal(signal.SIGTERM)
+
+    run = TreeRun(argv, env, tick=preempt).run()
+    causes = attempt_causes(P)
+    if run.proc.returncode != 75 or causes[-1:] != ["preempted"] \
+            or ledger_of(P)[-1]["phase"] != "campaign_preempted":
+        raise AssertionError(f"preempted campaign: rc {run.proc.returncode},"
+                             f" causes {causes}\n{run.err[-3000:]}")
+    scrape = probe["scrape"]
+    if scrape["kind"] != "campaign" or scrape["attempt"] != 1 \
+            or not scrape["solve"]:
+        raise AssertionError(f"campaign /status: {scrape}")
+    # nvidia-smi reports pids of its own PID namespace (a container's CUDA
+    # processes may all read as one pid there), so the check that holds
+    # is /proc/<pid>/maps: libcuda mapped in the attempt, never in the
+    # campaign; nvidia-smi's list is recorded beside it.
+    if probe["maps_cuda"]["campaign"] or run.proc.pid in probe["smi_pids"]:
+        raise AssertionError(f"CUDA in the campaign process: {probe}")
+    if on_card and not any(probe["maps_cuda"]["attempt"]):
+        raise AssertionError(f"the attempt holds no CUDA: {probe}")
+    sealed = len(checkpoint_progress(P)["solved_levels"])
+    first = dict(run.fields(),
+                 secs_sigterm_to_exit=run.t_end - probe["signalled"])
+    campaign_pid = run.proc.pid
+    run = TreeRun(argv, env).run()
+    rerun = [r for r in ledger_of(P) if r["phase"] == "campaign_attempt"][-1]
+    if run.proc.returncode != 0 or rerun["cause"] != "complete" \
+            or rerun["solved_before"] != sealed \
+            or attempt_report(P, rerun["attempt"]) != answer:
+        raise AssertionError(f"rerun after preemption: rc "
+                             f"{run.proc.returncode}, {rerun}\n"
+                             f"{run.err[-3000:]}")
+    fields["c_preempt"] = dict(
+        first=first, rerun=run.fields(), levels_sealed_at_sigterm=sealed,
+        nvidia_smi_pids=probe["smi_pids"], attempt_pids=probe["attempt_pids"],
+        campaign_pid=campaign_pid, maps_cuda=probe["maps_cuda"],
+        status=dict(kind=scrape["kind"], attempt=scrape["attempt"],
+                    breaker=scrape["breaker"],
+                    solve_phase=scrape["solve"].get("phase")))
+    emit("campaign preempt (c)", **fields["c_preempt"])
+    shutil.rmtree(P)
+
+    # (d) The registry: serve --jobs, POST /solve, run-jobs --once; the
+    # published epoch and files are phase 12's v1 DB; pulled twice.
+    R, name = tmp / "registry", "connect4_" + spec.split(":")[1].replace(
+        ",", "_").replace("=", "")
+    serve = subprocess.Popen(PORT_CLI + ["registry", "serve", "--root",
+                                         str(R), "--jobs", *extra],
+                             cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    try:
+        banner = serve.stdout.readline()
+        if " on http://" not in banner:
+            raise AssertionError(f"registry banner {banner!r}: "
+                                 f"{serve.stderr.read()[-2000:]}")
+        url = banner.split(" on ")[1].split()[0]
+        job = http_json(f"{url}/solve", {"spec": spec, "name": name})
+        if not job.get("ok") or job["state"] != "pending":
+            raise AssertionError(f"POST /solve: {job}")
+        run = TreeRun(PORT_CLI + ["registry", "run-jobs", "--root", str(R),
+                                  "--once", *extra], raw).run()
+        if run.proc.returncode != 0:
+            raise AssertionError(f"run-jobs: {run.out[-2000:]}\n"
+                                 f"{run.err[-3000:]}")
+        (res,) = json.loads(run.out.splitlines()[-1])["results"]
+        want = digests(v1)
+        cat = fetch_catalog(url)
+        rec = cat["dbs"][name]
+        if rec["epoch"] != want["manifest.json"] or res["epoch"] != \
+                rec["epoch"] or {f["name"]: f["sha256"]
+                                  for f in rec["files"]} != want:
+            raise AssertionError(f"published {rec['epoch']} != phase 12's "
+                                 f"v1 {want['manifest.json']}")
+        tp = time.perf_counter()
+        pulled = pull_db(url, name, tmp / "replica")
+        pull_secs = time.perf_counter() - tp
+        again = pull_db(url, name, tmp / "replica")
+        if not pulled["installed"] or again["installed"] or \
+                digests(pulled["db"]) != want:
+            raise AssertionError(f"pull: {pulled}, rerun {again}")
+        states, values, rem = sample_states(result, samples, seed=1717)
+        dev = torch.device("cuda" if on_card else "cpu")
+        with DbReader(pulled["db"], device=dev) as reader:
+            got_v, got_r, found = reader.lookup(states)
+        if not found.all() or not np.array_equal(got_v, values) \
+                or not np.array_equal(got_r, rem):
+            raise AssertionError("the pulled DB answers differently from "
+                                 "phase 9's tables")
+        serve.send_signal(signal.SIGTERM)
+        if serve.wait(timeout=60) != 0:
+            raise AssertionError(f"registry serve exited {serve.returncode}")
+    finally:
+        stop(serve)
+    fields["d_registry"] = dict(
+        run_jobs=run.fields(), epoch=rec["epoch"], files=len(rec["files"]),
+        files_equal_phase12_v1=True, pull=dict(
+            secs=pull_secs, installed=True, rerun_installed=False),
+        positions_checked=int(samples))
+    emit("registry (d)", **fields["d_registry"])
+    shutil.rmtree(tmp)
+    emit("campaign and registry", parts=sorted(fields),
+         secs=time.perf_counter() - t0)
+    return launches
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2534,6 +2900,8 @@ def main() -> int:
             classic_result, dense_result, tmp, v1,
             world_table=tmp / "sharded_one.npz")
         spec_instrumentation_phase(classic_result, dense_result, tmp)
+        campaign_launches = campaign_registry_phase(
+            classic_result, dense_result, tmp, v1)
         del classic_result
         checkpoint_dense_phase(dense_result, tmp)
     finally:
@@ -2556,16 +2924,17 @@ def main() -> int:
 
     emit("total", secs=time.perf_counter() - t_script)
     print(json.dumps({"kernels": [
-        # Launches on the path that runs each kernel: the dense solve for
-        # the gather (times at its largest launch's shape, then every
-        # shape; per path: dense, meshed dense, hybrid), the microbench
-        # for the doubling.
+        # Launches on the path that runs each kernel: the dense solve and
+        # the dense campaign's resumed attempt for the gather (times at
+        # its largest launch's shape, then every shape; per path: dense,
+        # meshed dense, hybrid, campaign), the microbench for the
+        # doubling.
         row("monotone_window_gather",
             "gamesmanmpi_tpu_torch/kernels/csrc/window_gather.cu",
             "gamesmanmpi_tpu/ops/pallas_gather.py:116",
-            dense_launches["monotone_window_gather"], k,
+            dense_launches["monotone_window_gather"] + campaign_launches, k,
             dict(dense=dense_launches["monotone_window_gather"],
-                 **path_launches)),
+                 **path_launches, campaign_dense=campaign_launches)),
         row("double_u32",
             "gamesmanmpi_tpu_torch/kernels/csrc/double_u32.cu",
             "tools/microbench2.py:210",

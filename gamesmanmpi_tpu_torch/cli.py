@@ -1,7 +1,7 @@
-"""Command line of the torch port: `solve`, `export-db`, `query` and
-`serve`.
+"""Command line of the torch port: `solve`, `export-db`, `query`,
+`serve` and `registry`.
 
-    gamesman-solve-torch solve GAME|--spec SPEC.json
+    gamesman-solve-torch [solve] GAME|--spec SPEC.json
                          [--engine auto|dense|classic|hybrid]
                          [--hybrid-cutover K]
                          [--device cuda|cpu] [--no-tables] [--paranoid]
@@ -21,7 +21,16 @@
     gamesman-solve-torch query DB POS... [--device cuda|cpu]
     gamesman-solve-torch serve DB [--workers N] [--fleet-manifest F]
                          [--control-port P] [--port P] [--device cuda|cpu]
-    python -m gamesmanmpi_tpu_torch.cli solve connect4:w=5,h=5
+    gamesman-solve-torch registry serve --root DIR [--jobs] [--port P]
+                         [--device cuda|cpu]
+    gamesman-solve-torch registry publish DB --root DIR [--name NAME]
+    gamesman-solve-torch registry run-jobs --root DIR [--once]
+                         [--book-plies N] [--device cuda|cpu]
+    python -m gamesmanmpi_tpu_torch connect4:w=5,h=5
+
+The flat grammar (a game first, no `solve`) solves, as the reference's
+CLI does; it is what a campaign attempt runs
+(resilience/campaign.py).
 
 `solve` prints the reference CLI's rank-0 block (gamesmanmpi_tpu/cli.py
 `_report`): game, devices, positions, value, remoteness, elapsed,
@@ -93,7 +102,11 @@ move, the reference's lines. `serve` answers queries over HTTP, the
 reference's endpoints, bodies and status codes (serve/server.py): one
 in-process server, or with --workers N (or --fleet-manifest) a
 supervised fleet of N worker processes on one port (serve/supervisor.py),
-whose readers run on --device after the fork.
+whose readers run on --device after the fork. `registry` (registry/)
+publishes DB epochs into a sha256-sealed catalog, serves it over HTTP
+with ranged blob reads and, with --jobs, a solve-on-demand queue; and
+`run-jobs` drives each queued job through the campaign, export-db and
+publish, every child on --device.
 
 Every command runs on the card unless --device cpu is given; without a
 card it exits 2 with a message. It returns 0 on success, 75 when
@@ -312,6 +325,47 @@ def build_parser() -> argparse.ArgumentParser:
         "worker; GET /traces then serves an empty ring)")
     ps.add_argument("-v", "--verbose", action="store_true")
     _device_arg(ps, "canonicalization and best-move expansion")
+
+    pr = sub.add_parser(
+        "registry",
+        help="DB registry: publish epochs, serve the catalog, run "
+        "solve-on-demand jobs (docs/SERVING.md)")
+    rsub = pr.add_subparsers(dest="registry_cmd", required=True)
+    rserve = rsub.add_parser(
+        "serve", help="serve the sha256-sealed catalog + blob streams over "
+        "HTTP")
+    rserve.add_argument("--root", required=True,
+                        help="registry root directory (catalog.json + dbs/)")
+    rserve.add_argument("--host", default="127.0.0.1")
+    rserve.add_argument("--port", type=int, default=0,
+                        help="0 = ephemeral (the bound port is printed)")
+    rserve.add_argument(
+        "--jobs", action="store_true",
+        help="accept POST /solve: unregistered-game queries become "
+        "durable solve-on-demand jobs in <root>/jobs.jsonl")
+    _device_arg(rserve, "the registry's solves (checked, not used: "
+                "run-jobs solves them)")
+    rpub = rsub.add_parser(
+        "publish",
+        help="copy a DB into the registry and seal a new catalog epoch")
+    rpub.add_argument("db", help="DB directory (from export-db)")
+    rpub.add_argument("--root", required=True,
+                      help="registry root directory")
+    rpub.add_argument("--name", default=None,
+                      help="catalog name (default: the DB's game name)")
+    rrun = rsub.add_parser(
+        "run-jobs",
+        help="claim queued solve-on-demand jobs and drive each through "
+        "campaign solve -> export-db -> publish")
+    rrun.add_argument("--root", required=True,
+                      help="registry root directory")
+    rrun.add_argument("--work-dir", default=None,
+                      help="checkpoint/export scratch (default <root>/work)")
+    rrun.add_argument("--book-plies", type=int, default=0, metavar="N",
+                      help="also build an N-ply opening book before publish")
+    rrun.add_argument("--once", action="store_true",
+                      help="run at most one job, then exit")
+    _device_arg(rrun, "every job's campaign, export and book")
     return p
 
 
@@ -425,13 +479,22 @@ def _get_game(spec: str):
         return None, _error(f"bad game spec {spec!r}: {e}")
 
 
+#: The subcommands; any other first token is a game (the flat grammar).
+_DB_COMMANDS = ("export-db", "serve", "query", "registry")
+_COMMANDS = ("solve",) + _DB_COMMANDS
+
+
 def solve_main(argv=None) -> tuple[int, Optional[object]]:
     """main() that also hands back the solve's SolveResult (None on an
     error, for an oracle-solved module, and for export-db and query)."""
     from gamesmanmpi_tpu_torch.resilience import faults
 
-    args = build_parser().parse_args(
-        list(sys.argv[1:] if argv is None else argv))
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # The flat grammar (game first) solves, as the reference's CLI does:
+    # no game is named like a command, and -h/--help stays top-level.
+    if argv and argv[0] not in _COMMANDS + ("-h", "--help"):
+        argv = ["solve", *argv]
+    args = build_parser().parse_args(argv)
     t0 = time.perf_counter()
     try:
         faults.configure_from_env()
@@ -447,6 +510,8 @@ def solve_main(argv=None) -> tuple[int, Optional[object]]:
         return _query(args), None
     if args.command == "serve":
         return _serve(args), None
+    if args.command == "registry":
+        return _registry(args), None
     with _solve_env(args):
         if (pathlib.Path(args.game).is_file()
                 and not args.game.lower().endswith(".json")):
@@ -1185,6 +1250,71 @@ def _serve_fleet(args, workers: int) -> int:
         finally:
             for sig, handler in previous.items():
                 signal.signal(sig, handler)
+
+
+def _registry(args) -> int:
+    """The reference's `_cmd_registry`: publish, run-jobs, serve."""
+    import signal
+    import threading
+
+    from gamesmanmpi_tpu_torch.db.format import DbFormatError, read_manifest
+    from gamesmanmpi_tpu_torch.registry.jobs import JobQueue, run_pending
+    from gamesmanmpi_tpu_torch.registry.server import (
+        RegistryServer,
+        publish_db,
+    )
+
+    root = pathlib.Path(args.root)
+    if args.registry_cmd == "publish":
+        try:
+            name = args.name or str(read_manifest(args.db)["game"])
+            record = publish_db(root, name, args.db)
+        except (DbFormatError, ValueError, OSError) as e:
+            return _error(str(e))
+        print(json.dumps({"name": name, "epoch": record["epoch"],
+                          "files": len(record["files"])}))
+        return 0
+    # The solves run in children on --device; this process only checks
+    # that the card exists, through NVML, and never loads torch: a job
+    # runner holding a CUDA process's resident set would tax every job.
+    from gamesmanmpi_tpu_torch.utils.device import NO_CARD, nvml_device_count
+
+    if args.device == "cuda" and nvml_device_count() <= 0:
+        return _error(NO_CARD)
+    if args.registry_cmd == "run-jobs":
+        queue = JobQueue(root / "jobs.jsonl")
+        work = pathlib.Path(args.work_dir) if args.work_dir else root / "work"
+        results = run_pending(queue, root, work, book_plies=args.book_plies,
+                              device=args.device, once=args.once,
+                              log=_jsonl_stderr)
+        print(json.dumps({"ran": len(results), "results": results},
+                         default=str))
+        return 0 if all(r["ok"] for r in results) else 1
+    queue = JobQueue(root / "jobs.jsonl") if args.jobs else None
+    srv = RegistryServer(root, host=args.host, port=args.port, queue=queue)
+    print(f"registry [{root}] on {srv.url} "
+          f"({'with' if queue else 'no'} solve-on-demand queue)",
+          flush=True)
+    stop = threading.Event()
+    previous = {}
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            previous[sig] = signal.signal(sig, lambda *_: stop.set())
+        except ValueError:  # not the main thread (programmatic use)
+            pass
+    srv.start()
+    try:
+        stop.wait()
+    finally:
+        srv.stop()
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+    return 0
+
+
+def _jsonl_stderr(record) -> None:
+    sys.stderr.write(json.dumps(record, default=str) + "\n")
+    sys.stderr.flush()
 
 
 def main(argv=None) -> int:

@@ -85,7 +85,9 @@ def _child_env(base: dict, rank: int, processes: int, coordinator: str,
 
 
 class World:
-    """A started world the caller can signal and wait on."""
+    """A started world the caller can signal and wait on (the campaign,
+    resilience/campaign.py, forwards preemption to every rank and waits
+    with its own policy)."""
 
     def __init__(self, procs, files, log_dir: str):
         self._procs = procs
@@ -95,6 +97,16 @@ class World:
 
     def pids(self) -> List[int]:
         return [p.pid for p in self._procs]
+
+    def send_signal(self, sig) -> None:
+        """Deliver `sig` to every rank still running (preemption grace
+        forwards SIGTERM this way; an unwinding campaign SIGKILLs)."""
+        for p in self._procs:
+            if p.poll() is None:
+                try:
+                    p.send_signal(sig)
+                except OSError:
+                    pass
 
     def stderr_of(self, rank: int) -> str:
         """What rank `rank` has written to stderr so far."""

@@ -4,8 +4,9 @@ gamesmanmpi_tpu/resilience/faults.py).
 Named fault points sit on the solve's host-side level paths (engine and
 sharded level steps, the sharded engine's collectives and consensus
 rounds, checkpoint seals and loads), the block store's write-behind, the
-DB reader's probe and the serving fleet (batcher flush, worker spawn and
-heartbeat, supervisor reload), and are armed from one environment
+DB reader's probe, the serving fleet (batcher flush, worker spawn and
+heartbeat, supervisor reload) and the DB registry (publish, pull,
+install, job claim), and are armed from one environment
 variable, so every failure the checkpoint claims to
 survive can be injected on demand: in-process by tests, or into a
 subprocess for kill + resume + identical-tables chaos.
@@ -14,10 +15,10 @@ Grammar (``GAMESMAN_FAULTS``, comma-separated directives)::
 
     point:kind[:when]
 
-* ``point`` — a name of the reference's :data:`KNOWN_POINTS`. Only the
-  points the port fires (:data:`PORTED_POINTS`) can be armed; arming one
-  the port does not have yet, or an unknown name, is a ``ValueError``, so
-  a chaos run never passes silently because its fault never fired.
+* ``point`` — a name of the reference's :data:`KNOWN_POINTS`, every one
+  of which the port fires (:data:`PORTED_POINTS`); an unknown name is a
+  ``ValueError``, so a chaos run never passes silently because its fault
+  never fired.
 * ``kind`` — ``transient`` (raise :class:`TransientFault`), ``fatal``
   (raise :class:`FatalFault`), ``delay=SECS`` (sleep), ``kill[=CODE]``
   (``os._exit``, default 77), ``torn`` (truncate the file the call site
@@ -92,14 +93,20 @@ PORTED_POINTS = {
     "coord.barrier": "coordination client: before each consensus round",
     "coord.handshake": "coordination client: before each dial of the "
                        "coordinator",
+    "registry.fetch": "registry pull client: after one ranged blob read "
+                      "lands in the staging file, before its checksum "
+                      "verify",
+    "registry.publish": "registry server: after the payload directory is "
+                        "installed, before the catalog seal",
+    "registry.install": "registry pull client: after every staged file "
+                        "verified, before the atomic rename-install",
+    "jobs.claim": "solve-on-demand runner: after a claim record is "
+                  "fsync'd to the job ledger, before the campaign starts",
 }
 
 #: Every point of the reference (gamesmanmpi_tpu/resilience/faults.py
-#: KNOWN_POINTS): the ported ones, and those whose subsystem the port
-#: does not have yet.
-KNOWN_POINTS = dict(PORTED_POINTS, **{p: "not yet ported" for p in (
-    "registry.fetch", "registry.publish", "registry.install", "jobs.claim",
-)})
+#: KNOWN_POINTS): the port fires them all.
+KNOWN_POINTS = PORTED_POINTS
 
 KINDS = ("transient", "fatal", "delay", "kill", "torn", "enospc", "oom")
 
@@ -153,11 +160,6 @@ def _parse_directive(text: str) -> _Directive:
     if point not in KNOWN_POINTS:
         raise ValueError(f"unknown fault point {point!r}; known: "
                          + ", ".join(sorted(KNOWN_POINTS)))
-    if point not in PORTED_POINTS:
-        raise ValueError(
-            f"fault point {point!r} is not yet ported to the torch port "
-            "(its subsystem is not); armable: "
-            + ", ".join(sorted(PORTED_POINTS)))
     kind, _, argtxt = parts[1].strip().partition("=")
     if kind not in KINDS:
         raise ValueError(f"unknown fault kind {kind!r} in {text!r}")

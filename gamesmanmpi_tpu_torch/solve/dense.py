@@ -75,6 +75,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from gamesmanmpi_tpu_torch import kernels
 from gamesmanmpi_tpu_torch.core.values import LOSE, TIE
 from gamesmanmpi_tpu_torch.games.connect4 import Connect4
 from gamesmanmpi_tpu_torch.obs import (
@@ -971,6 +972,7 @@ class DenseSolver:
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
+        launches0 = kernels.LAUNCHES["monotone_window_gather"]
         t0 = time.perf_counter()
         if ckpt is not None:
             if resume_cells is not None:
@@ -1083,6 +1085,11 @@ class DenseSolver:
             "gather_nmiss_per_level": {L: int(v) for L, v in nmiss.items()},
         }
         stats["gather_nmiss"] = sum(stats["gather_nmiss_per_level"].values())
+        # The window-gather kernel's launches in this solve (the wrapper's
+        # count; 0 on the CPU, which takes the plain version): how a solve
+        # in another process, a campaign attempt, shows it ran the kernel.
+        stats["gather_launches"] = (kernels.LAUNCHES["monotone_window_gather"]
+                                    - launches0)
         if cuda:
             stats["peak_mem_bytes"] = torch.cuda.max_memory_allocated(
                 self.device)

@@ -37,9 +37,12 @@ the sealed geometry, and then :class:`CheckpointGeometryError` names
 both geometries. Sealed edge shards never reshard: a level whose edges
 carry another geometry takes the lookup backward.
 
-Not ported yet (ROADMAP): ``artifact_kind``, ``disk_usage``,
-``quarantine_inventory``, ``referenced_files`` and ``gc_superseded``
-(the campaign's disk budget), and the JSONL observability hooks.
+The disk budget of a campaign (resilience/campaign.py): ``artifact_kind``,
+``disk_usage`` (the ``gamesman_ckpt_bytes{kind}`` gauges),
+``quarantine_inventory``, ``referenced_files`` and ``gc_superseded``,
+which work on filenames and the manifest alone, so on either package's
+directory, one device or sharded. Not ported yet (ROADMAP): the JSONL
+observability hooks.
 """
 
 from __future__ import annotations
@@ -576,6 +579,11 @@ class LevelCheckpointer:
             set(manifest.get("dense_levels", [])) | {level})
         self._write_manifest(manifest)
         self.save_secs += time.perf_counter() - t0
+        # The port also visits the seal point on a dense level (the
+        # reference fires none there), so a campaign's chaos can kill a
+        # dense solve after its Nth seal. No path: the dense loader keeps
+        # no crc, so ``torn`` here exits without tearing the file.
+        faults.fire("ckpt.save_level", level=level)
 
     def dense_levels(self) -> list:
         return sorted(self.load_manifest().get("dense_levels", []))
@@ -984,6 +992,171 @@ class LevelCheckpointer:
             out = {k: [np.sort(np.concatenate(f)) for f in per]
                    for k, per in out.items()}
         return out
+
+    # ------------------------------------------------------ disk budget
+    # A long campaign accretes superseded artifacts: quarantined
+    # ``.corrupt`` files, dead writers' per-pid tmp files, unsealed shard
+    # files resume ignores, and edge shards of levels already solved and
+    # sealed (the backward's per-level fallback to the lookup join makes
+    # deleting them safe). disk_usage() feeds the gamesman_ckpt_bytes{kind}
+    # gauges; gc_superseded() reclaims the superseded classes, so the
+    # campaign (resilience/campaign.py) turns ENOSPC into GC and a retry.
+    # Filenames only: the same methods serve either package's directory.
+
+    #: filename-prefix -> kind for the disk gauges and the GC scan.
+    _KIND_PREFIXES = (
+        ("level_", "level"),
+        ("frontier", "frontier"),  # frontier_*, frontiers.npz, shards
+        ("edges_", "edges"),
+        ("dense_", "dense"),
+    )
+
+    @classmethod
+    def artifact_kind(cls, name: str) -> str:
+        """Classify one checkpoint-tree filename: ``corrupt`` and ``tmp``
+        beat the payload prefixes (a quarantined level is reclaimable, a
+        sealed one is not)."""
+        if name == "manifest.json":
+            return "manifest"
+        if name.endswith(".corrupt"):
+            return "corrupt"
+        if ".tmp" in name:
+            return "tmp"
+        for prefix, kind in cls._KIND_PREFIXES:
+            if name.startswith(prefix):
+                return kind
+        return "other"
+
+    def disk_usage(self, registry=None) -> dict:
+        """Bytes on disk per artifact kind, published as the
+        ``gamesman_ckpt_bytes{kind=...}`` gauges (every kind is always
+        set, so a GC'd kind reads 0 instead of a stale gauge)."""
+        usage = {kind: 0 for _, kind in self._KIND_PREFIXES}
+        usage.update({"manifest": 0, "corrupt": 0, "tmp": 0, "other": 0})
+        try:
+            entries = list(os.scandir(self.dir))
+        except OSError:
+            entries = []
+        for entry in entries:
+            try:
+                if not entry.is_file():
+                    continue
+                usage[self.artifact_kind(entry.name)] += (
+                    entry.stat().st_size)
+            except OSError:
+                continue  # racing unlink (another rank's quarantine)
+        if registry is None:
+            from gamesmanmpi_tpu_torch.obs import default_registry
+
+            registry = default_registry()
+        for kind, nbytes in usage.items():
+            registry.gauge(
+                "gamesman_ckpt_bytes",
+                "checkpoint-tree bytes on disk by artifact kind",
+                kind=kind,
+            ).set(float(nbytes))
+        return usage
+
+    def quarantine_inventory(self) -> list:
+        """[{"file", "bytes"}] of quarantined ``.corrupt`` artifacts (the
+        campaign's diagnosis snapshots this before a GC deletes them)."""
+        out = []
+        for p in sorted(self.dir.glob("*.corrupt")):
+            try:
+                out.append({"file": p.name, "bytes": p.stat().st_size})
+            except OSError:
+                continue
+        return out
+
+    def referenced_files(self, manifest=None) -> set:
+        """Filenames the manifest seals (the not-superseded set). Any
+        other file with an artifact prefix is a stray a death left
+        behind: resume ignores it, GC may reclaim it."""
+        if manifest is None:
+            manifest = self.load_manifest()
+        ref = {"manifest.json"}
+        for k in manifest.get("levels", []):
+            ref.add(f"level_{int(k):04d}.npz")
+        for k, num in manifest.get("sharded_levels", {}).items():
+            for s in range(int(num)):
+                ref.add(f"level_{int(k):04d}.shard_{s:04d}.npz")
+        for k in manifest.get("forward_levels", []):
+            ref.add(f"frontier_{int(k):04d}.npz")
+        for k, num in manifest.get("forward_level_shards", {}).items():
+            for s in range(int(num)):
+                ref.add(f"frontier_{int(k):04d}.shard_{s:04d}.npz")
+        if manifest.get("frontiers"):
+            ref.add("frontiers.npz")
+        for s in range(int(manifest.get("frontier_shards") or 0)):
+            ref.add(f"frontiers.shard_{s:04d}.npz")
+        for k, info in manifest.get("edge_levels", {}).items():
+            for s in range(int(info.get("shards", 0))):
+                ref.add(f"edges_{int(k):04d}.shard_{s:04d}.npz")
+        for k in manifest.get("dense_levels", []):
+            ref.add(f"dense_{int(k):04d}.npz")
+        return ref
+
+    def gc_superseded(self, logger=None, registry=None) -> dict:
+        """Reclaim superseded artifacts; -> {"files", "bytes", "kinds":
+        {kind: bytes}}. In order: consumed edges (edge shards of solved
+        levels; the manifest unseals them first and the files go second,
+        so a death in between leaves orphans, never sealed entries naming
+        deleted files), quarantine (``.corrupt``), tmp strays, and every
+        payload file the manifest does not seal.
+
+        Contract: a quiescent tree (between campaign attempts, or from
+        the only live solver's thread). The write-behind queue drains
+        first, so an in-flight payload is never taken for a stray."""
+        self.flush_writes()
+        manifest = self.load_manifest()
+        solved = {int(k) for k in manifest.get("levels", [])}
+        solved |= {int(k) for k in manifest.get("sharded_levels", {})}
+        consumed = {
+            k: int(info.get("shards", 0))
+            for k, info in manifest.get("edge_levels", {}).items()
+            if int(k) in solved
+        }
+        if consumed:
+            for k in consumed:
+                manifest.get("edge_levels", {}).pop(k, None)
+                manifest.get("edge_seals", {}).pop(k, None)
+            self._write_manifest(manifest)
+        freed = {"files": 0, "bytes": 0, "kinds": {}}
+
+        def reclaim(path: pathlib.Path, kind: str) -> None:
+            try:
+                nbytes = path.stat().st_size
+                path.unlink()
+            except OSError:
+                return  # racing unlink / already gone
+            freed["files"] += 1
+            freed["bytes"] += nbytes
+            freed["kinds"][kind] = freed["kinds"].get(kind, 0) + nbytes
+
+        for k, shards in consumed.items():
+            for s in range(shards):
+                reclaim(self._edges_path(int(k), s), "edges")
+        referenced = self.referenced_files(manifest)
+        for p in sorted(self.dir.iterdir()):
+            if not p.is_file() or p.name in referenced:
+                continue
+            kind = self.artifact_kind(p.name)
+            if kind != "other":  # unknown files are never reclaimed
+                reclaim(p, kind)
+        if registry is None:
+            from gamesmanmpi_tpu_torch.obs import default_registry
+
+            registry = default_registry()
+        registry.counter(
+            "gamesman_ckpt_gc_reclaimed_bytes_total",
+            "checkpoint bytes reclaimed by retention GC",
+        ).inc(float(freed["bytes"]))
+        if logger is not None:
+            logger.log({"phase": "ckpt_gc", **{
+                k: v for k, v in freed.items() if k != "kinds"
+            }, "kinds": dict(freed["kinds"])})
+        self.disk_usage(registry=registry)  # refresh the gauges post-GC
+        return freed
 
 
 def save_table_npz(path, table: dict) -> None:
