@@ -200,6 +200,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              a rerun is a no-op; 312 sampled positions through `DbReader`
              equal phase 9's tables. Each run's seconds and the peak
              resident set of the campaign and of its largest child.
+18. capacity and pipeline 5x5 — raw checkpoint files throughout
+             (GAMESMAN_CKPT_COMPRESS=0). (a) `solve connect4:w=5,h=5
+             --engine classic` in-process with GAMESMAN_PIPELINE=level
+             and =pingpong in turns (level, pingpong, pingpong, level):
+             every level identical to phase 9's, `overlap_secs` > 0 under
+             pingpong; then one `--checkpoint-dir` run of each mode,
+             every level_NNNN.npz with the same sha256 in both. Each
+             run's backward seconds, overlap seconds and peak memory. (b)
+             The sharded 5x5 on 4 shards of the card
+             (GAMESMAN_FAKE_DEVICES=4) with `--window-block 1048576`, so
+             the widest levels stream, under `--backward edges` (with
+             `--table-out`) and `--backward lookup`:
+             `window_stream_blocks` > 0, tables identical to phase 9's,
+             peak memory beside phase 14's resident run. (c) (b)'s edges
+             run with `--checkpoint-dir`, `--device-store-mb 1` and
+             GAMESMAN_STORE_CACHE_MB=64: `edges_bytes_disk` > 0, tables
+             identical. (d) Two `solve connect4:w=5,h=5 --engine dense`
+             children sharing a GAMESMAN_DENSE_COUNTS_FILE in the phase's
+             temp dir: the first sweeps, the second's --jsonl `done`
+             record reads `reach_counts_source: file`; both 69,763,700 /
+             TIE / 25, their gather launches counted. (e) One `--engine
+             hybrid --hybrid-cutover 16 --jsonl` child: `hybrid_sweep`,
+             `hybrid_bfs` and `done` records with the reference's keys.
+             (f) `python -m gamesmanmpi_tpu_torch.db.check` on phase 12's
+             v1 and v2 DBs exits 0, and 1 on a copy of v1 with one byte
+             flipped, as tools/check_db.py does.
 
 Then the script's seconds, the kernels line, the `nvidia-smi`
 name/power-limit line, and last
@@ -1707,6 +1733,7 @@ def sharded_phase(result, tmp, spec=C55, answer=(69763700, "TIE", 25),
                       abort=[ln for ln in ranks[0].stderr.splitlines()
                              if ln.startswith("coordinated abort")]),
          secs=time.perf_counter() - t0)
+    return one
 
 
 def hardlink_copy(src, dst):
@@ -2857,12 +2884,243 @@ def campaign_registry_phase(result, dense_result, tmp, v1, spec=C55,
     return launches
 
 
+#: The keys of the reference's hybrid records (gamesmanmpi_tpu/solve/
+#: hybrid.py): hybrid_sweep and hybrid_bfs exactly, done's but the
+#: analytic byte counts the port leaves out. "t" is the logger's stamp.
+HYBRID_KEYS = {
+    "hybrid_sweep": {"phase", "t", "boundary", "frontier", "reachable",
+                     "secs"},
+    "hybrid_bfs": {"phase", "t", "levels", "positions", "secs"},
+    "done": {"phase", "t", "engine", "cutover", "positions",
+             "positions_dense_region", "positions_bfs_region",
+             "positions_per_sec", "secs_forward", "secs_backward",
+             "secs_total", "secs_bfs", "frontier_at_boundary",
+             "reachable_at_boundary"},
+}
+
+
+def file_sha(path):
+    import hashlib
+
+    return hashlib.sha256(pathlib.Path(path).read_bytes()).hexdigest()
+
+
+def pipeline_runs(result, tmp, spec, answer, extra):
+    """(a) GAMESMAN_PIPELINE level and pingpong in turns, then one
+    checkpointed run of each: -> the phase line's fields."""
+    runs = []
+    for mode in ("level", "pingpong", "pingpong", "level"):
+        with env_set(GAMESMAN_PIPELINE=mode):
+            r, report = cli_solve(["solve", spec, "--engine", "classic",
+                                   *extra])
+        if report_answer(report) != answer or r.stats["pipeline"] != mode:
+            raise AssertionError(f"{mode}: {report} {r.stats['pipeline']}")
+        _same_tables(r, result, f"pipeline {mode} vs phase 9")
+        s = r.stats
+        # On the card every level's tail waits on its copies; a CPU
+        # rehearsal's tails of zero-copy views round to 0.000 s.
+        if mode == "pingpong" and not s["overlap_secs"] > 0 \
+                and "cpu" not in extra:
+            raise AssertionError(f"pingpong overlap_secs {s['overlap_secs']}")
+        runs.append(dict(mode=mode, secs_forward=s["secs_forward"],
+                         secs_backward=s["secs_backward"],
+                         overlap_secs=s["overlap_secs"],
+                         bytes_host=s["bytes_host"],
+                         peak_mem_bytes=s["peak_mem_bytes"]))
+        del r
+    digests, ckpt = {}, {}
+    for mode in ("level", "pingpong"):
+        d = tmp / f"pipeline_{mode}"
+        with env_set(GAMESMAN_PIPELINE=mode, GAMESMAN_CKPT_COMPRESS=0):
+            r, report = cli_solve(["solve", spec, "--engine", "classic",
+                                   "--checkpoint-dir", str(d), *extra])
+        if report_answer(report) != answer:
+            raise AssertionError(f"checkpointed {mode}: {report}")
+        digests[mode] = {p.name: file_sha(p) for p in sorted(d.iterdir())
+                         if p.name.startswith("level_")}
+        s = r.stats
+        ckpt[mode] = dict(secs_backward=s["secs_backward"],
+                          overlap_secs=s["overlap_secs"],
+                          ckpt_save_secs=s.get("ckpt_save_secs"),
+                          peak_mem_bytes=s["peak_mem_bytes"])
+        del r
+        shutil.rmtree(d)
+    if len(digests["level"]) != len(result.levels) \
+            or digests["level"] != digests["pingpong"]:
+        raise AssertionError("checkpoint level files differ between level "
+                             "and pingpong")
+    if not ckpt["pingpong"]["overlap_secs"] > 0:
+        raise AssertionError(f"checkpointed pingpong: {ckpt['pingpong']}")
+    return dict(runs=runs, checkpointed=ckpt,
+                level_files_identical=len(digests["level"]))
+
+
+def streaming_runs(result, tmp, spec, answer, extra, window_block,
+                   store_mb):
+    """(b) and (c): window streaming under both backwards, then the
+    edges' disk tier: -> the phase line's fields."""
+    out = {}
+    wb = ["--window-block", str(window_block)]
+    for mode in ("edges", "lookup"):
+        more = (["--table-out", str(tmp / "streamed.npz")]
+                if mode == "edges" else [])
+        with env_set(GAMESMAN_FAKE_DEVICES=4):
+            r, report = cli_solve(["solve", spec, "--devices", "4", *wb,
+                                   "--backward", mode, *more, *extra])
+        s = r.stats
+        if report_answer(report) != answer or s["window_stream_blocks"] <= 0 \
+                or s["backward"] != mode or s["misses"]:
+            raise AssertionError(f"streamed {mode}: {report} {s}")
+        _same_tables(r, result, f"streamed {mode} vs phase 9")
+        if more:
+            table_out_equal(more[1], result)
+            pathlib.Path(more[1]).unlink()
+        out[mode] = dict(sharded_fields(s),
+                         window_stream_blocks=s["window_stream_blocks"])
+        del r
+    d = tmp / "disk_tier"
+    with env_set(GAMESMAN_FAKE_DEVICES=4, GAMESMAN_CKPT_COMPRESS=0,
+                 GAMESMAN_STORE_CACHE_MB=store_mb):
+        r, report = cli_solve(["solve", spec, "--devices", "4", *wb,
+                               "--backward", "edges", "--device-store-mb",
+                               "1", "--checkpoint-dir", str(d), *extra])
+    s = r.stats
+    if report_answer(report) != answer or s["edges_bytes_disk"] <= 0 \
+            or s["backward_edges_levels"] != s["levels"] - 1:
+        raise AssertionError(f"disk tier: {report} {s}")
+    _same_tables(r, result, "disk tier vs phase 9")
+    out["disk_tier"] = dict(
+        ckpt_fields(s), edges_bytes_disk=s["edges_bytes_disk"],
+        edges_bytes_spilled=s["edges_bytes_spilled"],
+        states_bytes_spilled=s["states_bytes_spilled"],
+        window_stream_blocks=s["window_stream_blocks"],
+        prefetch_hits=s["prefetch_hits"],
+        prefetch_misses=s["prefetch_misses"], store_cache_mb=store_mb,
+        disk_bytes=disk_bytes(d))
+    del r
+    shutil.rmtree(d)
+    return out
+
+
+def counts_file_children(tmp, spec, answer, extra):
+    """(d): two dense children sharing one counts file -> (fields,
+    their gather launches)."""
+    path = tmp / "dense_counts.json"
+    env = {"GAMESMAN_DENSE_COUNTS_FILE": str(path)}
+    out, launches = [], 0
+    for i, want in enumerate(("sweep", "file")):
+        log = tmp / f"counts_{i}.jsonl"
+        lines, rec, secs = run_child(["solve", spec, "--engine", "dense",
+                                      "--jsonl", str(log), *extra], 0, env)
+        done = [r for r in jsonl(log) if r["phase"] == "done"][-1]
+        if report_answer(lines) != answer \
+                or done["reach_counts_source"] != want:
+            raise AssertionError(f"counts child {i}: {lines[-3:]} "
+                                 f"{done.get('reach_counts_source')}")
+        launches += rec["launches"]["monotone_window_gather"]
+        out.append(dict(reach_counts_source=done["reach_counts_source"],
+                        secs_count_reachable=done["secs_count_reachable"],
+                        secs_backward=done["secs_backward"],
+                        gather_launches=done["gather_launches"],
+                        wall_secs=secs))
+    if not path.exists():
+        raise AssertionError("the first child wrote no counts file")
+    return out, launches
+
+
+def hybrid_records_child(tmp, spec, answer, extra, cutover):
+    """(e): the hybrid's records from a child's --jsonl -> (fields, its
+    gather launches)."""
+    log = tmp / "hybrid.jsonl"
+    lines, rec, secs = run_child(["solve", spec, "--engine", "hybrid",
+                                  "--hybrid-cutover", str(cutover),
+                                  "--jsonl", str(log), *extra], 0)
+    recs = [r for r in jsonl(log) if r["phase"] != "heartbeat"]
+    phases = [r["phase"] for r in recs]
+    if report_answer(lines) != answer or phases != [
+            "hybrid_sweep", "hybrid_bfs", "done"]:
+        raise AssertionError(f"hybrid records {phases}: {lines[-3:]}")
+    for r in recs:
+        want = HYBRID_KEYS[r["phase"]]
+        if r["phase"] == "done" and not want <= set(r) \
+                or r["phase"] != "done" and set(r) != want:
+            raise AssertionError(f"{r['phase']} keys {sorted(r)}")
+    return dict(records={r["phase"]: {k: v for k, v in r.items()
+                                      if k in ("boundary", "frontier",
+                                               "reachable", "levels",
+                                               "positions", "secs",
+                                               "secs_total")}
+                         for r in recs}, wall_secs=secs), \
+        rec["launches"]["monotone_window_gather"]
+
+
+def check_twin(tmp, v1, v2, extra):
+    """(f): the check_db twin on phase 12's DBs and on a copy of v1 with
+    one byte flipped -> its exit codes."""
+    def run(db):
+        proc = subprocess.run(
+            [sys.executable, "-m", "gamesmanmpi_tpu_torch.db.check",
+             str(db), "--quiet", *extra], cwd=REPO, capture_output=True,
+            text=True, timeout=600)
+        return proc.returncode, proc.stderr
+    rcs = {}
+    for name, db in (("v1", v1), ("v2", v2)):
+        rcs[name], err = run(db)
+        if rcs[name] != 0:
+            raise AssertionError(f"check twin on {name}: {err[-2000:]}")
+    bad = hardlink_copy(v1, tmp / "flipped.db")
+    victim = max((p for p in bad.iterdir() if p.name.startswith("level")),
+                 key=lambda p: p.stat().st_size)
+    data = bytearray(victim.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    fresh = victim.with_name(victim.name + ".tmp")
+    fresh.write_bytes(bytes(data))
+    os.replace(fresh, victim)  # a new inode: v1's file is untouched
+    rcs["flipped"], err = run(bad)
+    if rcs["flipped"] != 1 or "PROBLEM:" not in err:
+        raise AssertionError(f"check twin on a flipped byte: rc "
+                             f"{rcs['flipped']} {err[-1000:]}")
+    shutil.rmtree(bad)
+    return rcs
+
+
+def capacity_pipeline_phase(result, tmp, v1, v2, spec=C55,
+                            answer=(69763700, "TIE", 25), extra=(),
+                            window_block=1 << 20, store_mb=64, cutover=16,
+                            resident=None):
+    """Phase 18: the capacity and pipeline machinery. `result` is phase
+    9's classic solve of `spec`, `v1`/`v2` phase 12's DBs, `resident`
+    phase 14's one-process sharded fields; `extra` (`--device cpu`), a
+    smaller board, block and cache rehearse the phase on the CPU. ->
+    the gather launches of its dense children."""
+    t0 = time.perf_counter()
+    extra = list(extra)
+    pipe = pipeline_runs(result, tmp, spec, answer, extra)
+    streamed = streaming_runs(result, tmp, spec, answer, extra,
+                              window_block, store_mb)
+    counts, count_launches = counts_file_children(tmp, spec, answer, extra)
+    hybrid, hybrid_launches = hybrid_records_child(tmp, spec, answer, extra,
+                                                   cutover)
+    twin = check_twin(tmp, v1, v2, extra)
+    emit("capacity and pipeline 5x5", spec=spec, pipeline=pipe,
+         streaming=streamed,
+         resident_peak_mem_bytes=(resident or {}).get("peak_mem_bytes"),
+         counts_file=counts, hybrid=hybrid, check_twin_rc=twin,
+         secs=time.perf_counter() - t0)
+    return {"counts_file": count_launches, "hybrid_records": hybrid_launches}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    # No dense counts file outside phase 18 (d), which names its own: a
+    # file in the checkout would let later dense solves skip their reach
+    # sweep and change their seconds from one run of the script to the
+    # next.
+    os.environ["GAMESMAN_DENSE_COUNTS_FILE"] = "0"
     from gamesmanmpi_tpu_torch.bench.kernel_cases import (
         hbm_bytes_per_sec,
         nvidia_smi_line,
@@ -2895,13 +3153,15 @@ def main() -> int:
         checkpoint_classic_phase(classic_result, tmp)
         v1, v2 = db_phase(classic_result, tmp)
         serve_phase(classic_result, tmp, v1, v2)
-        sharded_phase(classic_result, tmp)
+        sharded_one = sharded_phase(classic_result, tmp)
         path_launches = reshard_hybrid_phase(
             classic_result, dense_result, tmp, v1,
             world_table=tmp / "sharded_one.npz")
         spec_instrumentation_phase(classic_result, dense_result, tmp)
         campaign_launches = campaign_registry_phase(
             classic_result, dense_result, tmp, v1)
+        capacity_launches = capacity_pipeline_phase(
+            classic_result, tmp, v1, v2, resident=sharded_one)
         del classic_result
         checkpoint_dense_phase(dense_result, tmp)
     finally:
@@ -2924,17 +3184,20 @@ def main() -> int:
 
     emit("total", secs=time.perf_counter() - t_script)
     print(json.dumps({"kernels": [
-        # Launches on the path that runs each kernel: the dense solve and
-        # the dense campaign's resumed attempt for the gather (times at
-        # its largest launch's shape, then every shape; per path: dense,
-        # meshed dense, hybrid, campaign), the microbench for the
-        # doubling.
+        # Launches on the path that runs each kernel: the dense solve, the
+        # dense campaign's resumed attempt and the two counts-file dense
+        # children for the gather (times at its largest launch's shape,
+        # then every shape; per path: dense, meshed dense, hybrid,
+        # campaign, counts file, the hybrid records child), the
+        # microbench for the doubling.
         row("monotone_window_gather",
             "gamesmanmpi_tpu_torch/kernels/csrc/window_gather.cu",
             "gamesmanmpi_tpu/ops/pallas_gather.py:116",
-            dense_launches["monotone_window_gather"] + campaign_launches, k,
+            dense_launches["monotone_window_gather"] + campaign_launches
+            + capacity_launches["counts_file"], k,
             dict(dense=dense_launches["monotone_window_gather"],
-                 **path_launches, campaign_dense=campaign_launches)),
+                 **path_launches, campaign_dense=campaign_launches,
+                 **capacity_launches)),
         row("double_u32",
             "gamesmanmpi_tpu_torch/kernels/csrc/double_u32.cu",
             "tools/microbench2.py:210",

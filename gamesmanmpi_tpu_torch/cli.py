@@ -12,7 +12,9 @@
                          [--jsonl F] [-v] [--trace-events F]
                          [--metrics-out F] [--heartbeat-secs S]
                          [--status-port P] [--watchdog-secs S]
-                         [--profile-dir DIR]
+                         [--profile-dir DIR] [--backward-block N]
+                         [--window-block N] [--device-store-mb MB]
+                         [--backward edges|lookup]
     gamesman-solve-torch solve path/to/module.py [--device cuda|cpu] ...
     gamesman-solve-torch export-db GAME|--spec SPEC.json --out DIR
                          [--from-checkpoint DIR] [--overwrite]
@@ -65,6 +67,12 @@ Every abnormal exit (preempted, out of memory, coordinated abort, crash)
 dumps the flight recorder into GAMESMAN_FLIGHTREC_DIR, which defaults to
 --checkpoint-dir. A host MemoryError (GAMESMAN_HOST_MEM_LIMIT_MB's guard
 at a level boundary) prints "out of memory: ..." and exits 1.
+
+The capacity flags spell env knobs and win over them for the solve:
+--backward-block (GAMESMAN_BACKWARD_BLOCK), --window-block
+(GAMESMAN_WINDOW_BLOCK), --device-store-mb (GAMESMAN_DEVICE_STORE_MB)
+and --backward (GAMESMAN_BACKWARD). A compat module solved on the host
+ignores them with the reference's warning.
 
 --devices N (N > 1) runs the hash-partitioned sharded engine
 (parallel/sharded.py) over N shards, for `auto` and `classic` and for a
@@ -193,6 +201,29 @@ def build_parser() -> argparse.ArgumentParser:
         "--query", action="append", default=None, metavar="POS",
         help="after solving, print the value/remoteness of this packed "
         "position (decimal or 0x-hex; repeatable)")
+    # Capacity knobs: CLI spellings of the GAMESMAN_* env knobs the
+    # engines read at construction; the flag wins when both are set.
+    s.add_argument(
+        "--backward-block", type=int, default=None, metavar="POSITIONS",
+        help="resolve levels in column blocks of this many positions "
+        "(bounds backward temporaries; 0 = never block; env "
+        "GAMESMAN_BACKWARD_BLOCK)")
+    s.add_argument(
+        "--window-block", type=int, default=None, metavar="POSITIONS",
+        help="sharded: spill window levels wider than this (per shard) to "
+        "pinned host memory and stream them back through the device in "
+        "blocks (0 = never spill; env GAMESMAN_WINDOW_BLOCK)")
+    s.add_argument(
+        "--device-store-mb", type=int, default=None, metavar="MB",
+        help="device-resident budget for discovered levels + provenance "
+        "between forward and backward; excess spills to host (env "
+        "GAMESMAN_DEVICE_STORE_MB)")
+    s.add_argument(
+        "--backward", choices=("edges", "lookup"), default=None,
+        help="sharded backward strategy: 'edges' (default) resolves each "
+        "level from the forward pass's stored edge indices, falling back "
+        "to 'lookup' per level where edges are missing; 'lookup' forces "
+        "the owner-routed search join everywhere (env GAMESMAN_BACKWARD)")
     s.add_argument(
         "--devices", type=int, default=1, metavar="N",
         help="shards to partition the solve over (1 = one device; N > 1 "
@@ -545,8 +576,12 @@ def _solve_env(args):
                      if args.checkpoint_dir
                      and not env_opt("GAMESMAN_FLIGHTREC_DIR") else None)
     saved = {}
-    for flag, env in ((args.heartbeat_secs, "GAMESMAN_HEARTBEAT_SECS"),
+    for flag, env in ((args.backward_block, "GAMESMAN_BACKWARD_BLOCK"),
+                      (args.window_block, "GAMESMAN_WINDOW_BLOCK"),
+                      (args.device_store_mb, "GAMESMAN_DEVICE_STORE_MB"),
+                      (args.heartbeat_secs, "GAMESMAN_HEARTBEAT_SECS"),
                       (args.watchdog_secs, "GAMESMAN_WATCHDOG_SECS"),
+                      (args.backward, "GAMESMAN_BACKWARD"),
                       (args.status_port, "GAMESMAN_STATUS_PORT"),
                       (flightrec_dir, "GAMESMAN_FLIGHTREC_DIR")):
         if flag is not None:
@@ -718,7 +753,8 @@ def _solve_with(game, args, t0: float, device, world: int, logger,
         try:
             solver = HybridSolver(game, cutover=args.hybrid_cutover,
                                   store_tables=not args.no_tables,
-                                  device=device, devices=args.devices)
+                                  device=device, devices=args.devices,
+                                  logger=logger)
         except ValueError as e:  # a bad cutover or --devices
             return _error(str(e)), None
     # Same platform policy as the reference: the dense engine is the
@@ -852,9 +888,9 @@ def _solve_module(args, t0: float) -> tuple[int, Optional[object]]:
     module that declares `level_of` runs on the classic engine through
     compat.TensorizedModule (on the sharded engine with --devices > 1 or
     in a world); any other module is solved by the host oracle, and
-    --devices/--paranoid/--checkpoint-dir are then ignored with a
-    warning. --engine dense applies to the built-in Connect-4 family only
-    and exits 2."""
+    --devices/--paranoid/--checkpoint-dir and the capacity flags are
+    then ignored with a warning. --engine dense applies to the built-in
+    Connect-4 family only and exits 2."""
     from gamesmanmpi_tpu_torch.compat import load_game_module
 
     if args.engine in ("dense", "hybrid"):
@@ -888,14 +924,19 @@ def _solve_module_with(module, args, t0: float, device, world: int,
     from gamesmanmpi_tpu_torch.utils.profiling import maybe_profile
 
     engine_capable = hasattr(module, "level_of")
-    for flag, name in ((args.devices > 1, "--devices"),
-                       (args.paranoid, "--paranoid"),
-                       (args.checkpoint_dir, "--checkpoint-dir")):
+    for flag, name in (
+            (args.devices > 1, "--devices"),
+            (args.paranoid, "--paranoid"),
+            (args.checkpoint_dir, "--checkpoint-dir"),
+            (args.backward_block is not None, "--backward-block"),
+            (args.window_block is not None, "--window-block"),
+            (args.device_store_mb is not None, "--device-store-mb")):
         if flag and not engine_capable:
+            # The reference's words, "TPU" included.
             print(f"warning: {name} needs the tensorized compat path and "
                   "is ignored on the host solve; define level_of(pos) in "
                   "the module (max_moves is auto-derived) to drive the "
-                  "engine", file=sys.stderr)
+                  "TPU engine", file=sys.stderr)
     if engine_capable:
         checkpointer = _checkpointer(args)
         kwargs = {"checkpointer": checkpointer, "logger": logger}

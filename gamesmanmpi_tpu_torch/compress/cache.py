@@ -4,9 +4,10 @@ A bounded, thread-safe LRU over decoded payloads, budgeted in bytes
 (blocks and arrays vary in decoded size). Lookup and insert hold the
 lock; decoding never does, so two threads racing one cold key both
 decode and the second insert wins. The counters are read through
-:meth:`BlockCache.stats`, and also land in registry series when the
-owner hands in ``instruments`` (store.TieredCache's
-``gamesman_store_cache_*``).
+:meth:`BlockCache.stats`, and also land in registry series: the
+``gamesman_db_cache_*`` family when the owner hands in a ``registry``
+(with ``labels``), or the owner's own family through ``instruments``
+(store.TieredCache's ``gamesman_store_cache_*``).
 """
 
 from __future__ import annotations
@@ -18,10 +19,16 @@ from collections import OrderedDict
 class BlockCache:
     """LRU of decoded payloads, bounded by total decoded bytes."""
 
-    def __init__(self, budget_bytes: int, *, instruments=None):
-        """instruments: pre-built (hits, misses, evictions, bytes)
-        registry children, or None. Metric names stay literal at their
-        creation site (gamesman-lint GM403), so the owner builds them."""
+    def __init__(self, budget_bytes: int, *, registry=None, labels=None,
+                 instruments=None):
+        """registry: a metrics registry to export the counters into as
+        ``gamesman_db_cache_*`` (hits, misses, evictions, resident
+        bytes), with ``labels`` (e.g. ``{"db": name}``) on every series;
+        None keeps the counters local. instruments: pre-built (hits,
+        misses, evictions, bytes) registry children of another family
+        instead; it wins over ``registry``. Metric names stay literal at
+        their creation site (gamesman-lint GM403), so an owner with its
+        own family builds them."""
         self.budget_bytes = int(budget_bytes)
         self._lock = threading.Lock()
         self._map: OrderedDict = OrderedDict()  # guarded-by: _lock
@@ -34,6 +41,21 @@ class BlockCache:
         if instruments is not None:
             (self._m_hits, self._m_misses, self._m_evictions,
              self._m_bytes) = instruments
+        elif registry is not None:
+            lbl = dict(labels or {})
+            self._m_hits = registry.counter(
+                "gamesman_db_cache_hits_total",
+                "probes answered from an already-decoded hot block", **lbl)
+            self._m_misses = registry.counter(
+                "gamesman_db_cache_misses_total",
+                "probes that had to decode a cold block", **lbl)
+            self._m_evictions = registry.counter(
+                "gamesman_db_cache_evictions_total",
+                "decoded blocks evicted by the byte budget "
+                "(GAMESMAN_DB_CACHE_MB)", **lbl)
+            self._m_bytes = registry.gauge(
+                "gamesman_db_cache_bytes",
+                "decoded bytes resident in the hot-block cache", **lbl)
 
     def get(self, key):
         """The cached value for key (refreshing recency), or None."""

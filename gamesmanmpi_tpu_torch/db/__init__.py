@@ -15,14 +15,16 @@ torch, while the format helpers and the integrity checker do not — so a
 DB validates with numpy alone.
 """
 
-from gamesmanmpi_tpu_torch.db.check import check_db
 from gamesmanmpi_tpu_torch.db.format import (
     DbFormatError,
     parse_position,
     probe_sorted_np,
 )
 
+# The checker is lazy too, so `python -m gamesmanmpi_tpu_torch.db.check`
+# runs the module once, as __main__.
 _LAZY = {
+    "check_db": "gamesmanmpi_tpu_torch.db.check",
     "DbReader": "gamesmanmpi_tpu_torch.db.reader",
     "DbWriter": "gamesmanmpi_tpu_torch.db.writer",
     "export_checkpoint": "gamesmanmpi_tpu_torch.db.writer",

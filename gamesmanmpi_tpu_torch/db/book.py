@@ -274,3 +274,68 @@ def verify_book(directory, *, game=None, batch: int = 8192,
     finally:
         reader.close()
     return problems
+
+
+def main(argv=None) -> int:
+    """Build (or rebuild) the opening book of a finalized DB: the twin
+    of tools/build_book.py, its flags, lines and exit codes::
+
+        python -m gamesmanmpi_tpu_torch.db.book DB_DIR --plies N
+            [--verify] [--device cuda|cpu]
+
+    --plies defaults to GAMESMAN_BOOK_PLIES. Exit 0 = sealed (and
+    verified when asked), 1 = verification problems, 2 = usage error
+    (no card without --device cpu among them)."""
+    import argparse
+    import sys
+
+    from gamesmanmpi_tpu_torch.db.format import DbFormatError
+    from gamesmanmpi_tpu_torch.utils.device import (
+        DeviceUnavailable,
+        resolve_device,
+    )
+    from gamesmanmpi_tpu_torch.utils.env import env_int
+
+    p = argparse.ArgumentParser(
+        description="Build (or rebuild) the resident opening book of a "
+        "finalized DB.")
+    p.add_argument("db_dir", help="finalized DB directory (from export-db)")
+    p.add_argument("--plies", type=int, default=None, metavar="N",
+                   help="book depth: every position within N plies of "
+                   "the initial position. Default from GAMESMAN_BOOK_PLIES")
+    p.add_argument("--verify", action="store_true",
+                   help="after sealing, re-probe every book entry "
+                   "through the reader and exit 1 on any mismatch")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="device of the reader that scores the book "
+                   "(default cuda)")
+    args = p.parse_args(argv)
+    plies = (env_int("GAMESMAN_BOOK_PLIES", 0) if args.plies is None
+             else int(args.plies))
+    if plies <= 0:
+        print("error: --plies N (or GAMESMAN_BOOK_PLIES) must be > 0",
+              file=sys.stderr)
+        return 2
+    try:
+        device = resolve_device(args.device)
+        rec = build_book(args.db_dir, plies, device=device)
+    except (DeviceUnavailable, DbFormatError, FileNotFoundError,
+            ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(f"book sealed: {rec['count']} entries to {rec['plies']} plies "
+          f"({rec['file']}, sha256 {rec['sha256'][:12]}…)")
+    if args.verify:
+        problems = verify_book(args.db_dir, device=device)
+        for problem in problems:
+            print(f"PROBLEM: {problem}", file=sys.stderr)
+        if problems:
+            print(f"{args.db_dir}: {len(problems)} problem(s)",
+                  file=sys.stderr)
+            return 1
+        print("book verified: every entry matches the reader")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

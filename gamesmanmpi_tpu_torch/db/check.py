@@ -29,6 +29,19 @@ identical across storage versions (the compressed-migration gate);
 ``db_equal_fast`` is its O(manifest) digest screen — same sealed
 sha256s means same content with zero decode, anything else falls back
 to the streamed compare.
+
+The command line (the twin of tools/check_db.py: its flags, lines and
+exit codes)::
+
+    python -m gamesmanmpi_tpu_torch.db.check DB_DIR [--quiet]
+        [--stats-json F] [--same-as OTHER_DB] [--deep]
+        [--skip-book-probe] [--device cuda|cpu]
+
+checks the directory, then re-probes a sealed opening book through a
+DbReader on --device (the only step that needs a device; without the
+card it exits 2 unless --device cpu), and prints the per-level size and
+ratio table. Exit 0 = clean, 1 = problems (one ``PROBLEM:`` line each on
+stderr), 2 = usage error.
 """
 
 from __future__ import annotations
@@ -571,3 +584,116 @@ def verify_for_serving(directory, verbose=None) -> bool:
             + (f" (+{len(problems) - 1} more)" if len(problems) > 1 else "")
         )
     return True
+
+
+def format_stats_table(stats: dict) -> str:
+    """The per-level size/ratio table (db_stats record -> text)."""
+    lines = [
+        f"{'level':>5}  {'positions':>10}  {'stored_MB':>11}  "
+        f"{'raw_MB':>11}  {'ratio':>6}  codecs"
+    ]
+    for row in stats["levels"]:
+        lines.append(
+            f"{row['level']:>5}  {row['count']:>10}  "
+            f"{row['stored_bytes'] / 1e6:>11.2f}  "
+            f"{row['raw_bytes'] / 1e6:>11.2f}  "
+            f"{row['ratio']:>5.1f}x  {','.join(row['codecs'])}"
+        )
+    lines.append(
+        f"{'TOTAL':>5}  {stats['num_positions']:>10}  "
+        f"{stats['stored_bytes'] / 1e6:>11.2f}  "
+        f"{stats['raw_bytes'] / 1e6:>11.2f}  "
+        f"{stats['ratio']:>5.1f}x  (format v{stats['version']})"
+    )
+    return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    """The checker's entry point (module docstring)."""
+    import argparse
+    import json
+    import sys
+
+    p = argparse.ArgumentParser(
+        description="Solved-position DB integrity checker (CI-runnable).")
+    p.add_argument("db_dir", help="database directory (from export-db)")
+    p.add_argument("--quiet", action="store_true",
+                   help="print problems only — no per-level OK lines, "
+                   "no summary table")
+    p.add_argument("--stats-json", default=None, metavar="FILE",
+                   help="also write the db_stats record (per-level "
+                   "sizes/ratios) as JSON")
+    p.add_argument("--same-as", default=None, metavar="OTHER_DB",
+                   help="additionally require logical equality with "
+                   "another DB directory (storage-version-agnostic); the "
+                   "sealed manifest sha256s are compared first, and only "
+                   "an inconclusive screen streams the full compare")
+    p.add_argument("--deep", action="store_true",
+                   help="with --same-as: always run the full streamed "
+                   "decode compare")
+    p.add_argument("--skip-book-probe", action="store_true",
+                   help="skip the opening-book deep re-probe (the only "
+                   "check that needs a device); the structural "
+                   "seal/parse check still runs")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="device of the book re-probe's reader (default "
+                   "cuda)")
+    args = p.parse_args(argv)
+
+    problems = check_db(args.db_dir, verbose=None if args.quiet else print)
+    if args.same_as:
+        verdict = "unknown"
+        if not args.deep:
+            verdict, fast_diffs = db_equal_fast(args.db_dir, args.same_as)
+            if verdict == "same" and not args.quiet:
+                print(f"same-as {args.same_as}: manifest digests match "
+                      "(fast path)")
+            elif verdict == "different":
+                problems += [f"differs from {args.same_as}: {d}"
+                             for d in fast_diffs]
+        if verdict == "unknown":
+            problems += [f"differs from {args.same_as}: {d}"
+                         for d in db_equal(args.db_dir, args.same_as)]
+    if not problems and not args.skip_book_probe:
+        try:
+            has_book = bool(read_manifest(args.db_dir).get("book"))
+        except DbFormatError:
+            has_book = False
+        if has_book:
+            from gamesmanmpi_tpu_torch.db.book import verify_book
+            from gamesmanmpi_tpu_torch.utils.device import (
+                DeviceUnavailable,
+                resolve_device,
+            )
+
+            try:
+                device = resolve_device(args.device)
+            except DeviceUnavailable as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 2
+            problems += verify_book(args.db_dir, device=device)
+            if not args.quiet and not problems:
+                print("book: deep re-probe OK (every entry matches the "
+                      "reader)")
+    for problem in problems:
+        print(f"PROBLEM: {problem}", file=sys.stderr)
+    if problems:
+        print(f"{args.db_dir}: {len(problems)} problem(s)", file=sys.stderr)
+        return 1
+    try:
+        stats = db_stats(args.db_dir)
+    except (DbFormatError, OSError) as e:
+        # check_db passed, so this is a race (a file vanished).
+        print(f"PROBLEM: stats: {e}", file=sys.stderr)
+        return 1
+    if args.stats_json:
+        with open(args.stats_json, "w") as fh:
+            json.dump(stats, fh, indent=1)
+    if not args.quiet:
+        print(format_stats_table(stats))
+        print(f"{args.db_dir}: OK")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -8,17 +8,14 @@ Split in two so static tooling stays light:
 * gamedsl.compiler — the lowering to the port's int64-carrier
   TensorGames (compile_spec -> TensorGame), which imports torch.
 
-`compile_spec` is re-exported lazily: importing gamedsl does not pull
-torch until a spec is actually compiled.
+Every name is re-exported lazily: importing gamedsl does not pull torch
+until a spec is actually compiled, and `python -m
+gamesmanmpi_tpu_torch.gamedsl.spec` (the spec linter) runs its module
+once, as __main__.
 """
 
-from gamesmanmpi_tpu_torch.gamedsl.spec import (  # noqa: F401
-    GameSpec,
-    SpecError,
-    lint_file,
-    load_spec,
-    spec_problems,
-)
+_SPEC_NAMES = ("GameSpec", "SpecError", "lint_file", "load_spec",
+               "spec_problems")
 
 __all__ = [
     "GameSpec",
@@ -34,4 +31,7 @@ def __getattr__(name):
     if name == "compile_spec":
         from gamesmanmpi_tpu_torch.gamedsl.compiler import compile_spec
         return compile_spec
+    if name in _SPEC_NAMES:
+        from gamesmanmpi_tpu_torch.gamedsl import spec
+        return getattr(spec, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

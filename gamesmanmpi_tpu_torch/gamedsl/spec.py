@@ -26,6 +26,16 @@ it in the manifest, so `check_db --same-as` fails loudly when a DB was
 exported from different rules than the spec now on disk. Both packages
 compute the same hash for the same spec.
 
+The linter (the twin of tools/spec_lint.py, its flags, lines and exit
+codes)::
+
+    python -m gamesmanmpi_tpu_torch.gamedsl.spec [SPEC.json ...]
+                                                 [--errors-only]
+
+lints the named files, or every committed spec under examples/specs/,
+one line per finding; exit 0 = no errors (warnings are advisory), 1 =
+error findings, 2 = usage error.
+
 Directions are named on the compass; opposite names denote the same
 undirected line family and collapse to a canonical representative
 (w->e, s->n, sw->ne, nw->se). Vectors are (dcol, drow) with rows
@@ -468,3 +478,48 @@ def lint_file(path: str) -> list:
     except SpecError as e:
         return [_problem("error", "GS001", f"invalid spec: {e}")]
     return spec_problems(spec)
+
+
+def main(argv=None) -> int:
+    """The spec linter's entry point (module docstring)."""
+    import argparse
+    import glob
+    import os
+    import sys
+
+    p = argparse.ArgumentParser(
+        prog="spec_lint",
+        description="Validate declarative GameSpec files "
+        "(docs/GAMEDSL.md).",
+    )
+    p.add_argument("specs", nargs="*",
+                   help="GameSpec .json files (default: examples/specs/*)")
+    p.add_argument("--errors-only", action="store_true",
+                   help="suppress warning-severity findings")
+    args = p.parse_args(argv)
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    paths = args.specs or sorted(
+        glob.glob(os.path.join(repo, "examples", "specs", "*.json")))
+    if not paths:
+        print("error: no spec files to lint", file=sys.stderr)
+        return 2
+    errors = 0
+    for path in paths:
+        findings = lint_file(path)
+        for f in findings:
+            if args.errors_only and f["severity"] != "error":
+                continue
+            print(f"{path}: {f['code']} {f['severity']}: {f['message']}")
+            if f["severity"] == "error":
+                errors += 1
+        if not findings:
+            print(f"{path}: OK")
+    if errors:
+        print(f"{errors} error finding(s)", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

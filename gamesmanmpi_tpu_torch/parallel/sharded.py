@@ -40,6 +40,14 @@ Two backwards:
   ``combine_children``). No sort, no search, no re-expansion. Edges stay
   on the device within ``GAMESMAN_DEVICE_STORE_MB`` (with the level
   states), past it in host RAM, and return to the device for their level.
+  The disk tier: when the host RAM tier is full too (the spilled edges
+  past the store cache's budget, ``GAMESMAN_STORE_CACHE_MB``) and the
+  checkpointer seals the edges anyway, no resident copy is kept
+  (``stats["edges_bytes_disk"]``); the backward reloads them through the
+  store, where the readahead hints have already decoded them. The
+  budgets weigh the level's bytes over every shard, which each rank
+  works out from the control round, so the ranks of a world agree on
+  every tier.
 * **Lookup** (``GAMESMAN_BACKWARD=lookup``, the generic path, and any
   level without edges): regenerate the children, route the queries to
   their owners, ``lookup_window`` there, reply, un-permute, combine; in
@@ -100,9 +108,22 @@ fleet-merged view of the peers announced to the coordinator). A record
 carries what the engine holds on the host; no synchronisation is added
 for one.
 
-Not ported here: window streaming (``GAMESMAN_WINDOW_BLOCK``), the route
-capacity and its spill loop (parallel/exchange.py says why), background
-compiles, and the analytic byte and dispatch counts.
+Window streaming (``GAMESMAN_WINDOW_BLOCK``, :func:`_window_block`): a
+solved level wider than the block per shard (its capacity bucket, as the
+reference measures it) is not kept on the device as a window. Each local
+shard's (states, values, remoteness) slice moves to pinned host memory,
+and the shallower levels that read it stream it back through one reused
+device buffer per shard and array, ``window_block`` positions at a time,
+with ``non_blocking`` copies: the lookup join looks its routed queries up
+block by block, the edges backward gathers its cells block by block (only
+the cells stream, never the states). Once one window level is spilled,
+every level of the window streams. Blocks are positions within a shard's
+exact slice, and every rank runs as many blocks as the widest shard
+needs. ``stats["window_stream_blocks"]`` counts them.
+
+Not ported here: the route capacity and its spill loop
+(parallel/exchange.py says why), background compiles, and the analytic
+byte and dispatch counts.
 """
 
 from __future__ import annotations
@@ -181,6 +202,17 @@ from gamesmanmpi_tpu_torch.utils.env import env_float, env_int, env_str
 #: The reference's smallest capacity bucket: a sealed edge level's slot
 #: map spans bucket_size(the level's widest shard) * max_moves lanes.
 MIN_BUCKET = 256
+
+
+def _window_block() -> int:
+    """Largest per-shard window level (its capacity bucket) kept on the
+    device, GAMESMAN_WINDOW_BLOCK positions: a power of two, at least
+    256; 0 = never spill. Wider solved levels stream back in blocks of
+    this many positions."""
+    n = env_int("GAMESMAN_WINDOW_BLOCK", 1 << 22)
+    if n <= 0:
+        return 1 << 62
+    return max(256, 1 << (n - 1).bit_length())
 
 
 def bucket_size(n: int, minimum: int = MIN_BUCKET) -> int:
@@ -289,6 +321,61 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+_STATE_BYTES = 8  # an int64 state
+
+
+def _edge_bytes(C: np.ndarray, sizes: np.ndarray, max_moves: int) -> int:
+    """One expanded level's edges over every shard, from the control
+    round's route counts: shard s holds int32 ``eidx`` [C[s].sum()] and
+    ``slot`` [sizes[s] * max_moves]. The device-store, host and disk
+    verdicts weigh these global bytes (the reference's ``nbytes`` of a
+    global array), so every rank of a world reaches the same verdict and
+    runs the same collectives in the backward."""
+    return 4 * (int(C.sum()) + int(sizes.sum()) * max_moves)
+
+
+class _Spilled:
+    """A solved window level in host memory: ``width`` the widest
+    shard's count (the same on every rank), ``shards`` per local shard
+    its (states, values, remoteness) host tensors, pinned on the card."""
+
+    __slots__ = ("width", "shards")
+
+    def __init__(self, width: int, triples, pin: bool):
+        self.width = int(width)
+        self.shards = []
+        for tri in triples:
+            host = []
+            for t in tri:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                h.copy_(t)
+                host.append(h)
+            self.shards.append(tuple(host))
+
+
+class _Uploader:
+    """One reused device buffer per local shard and array for streamed
+    window blocks. A block is copied in with ``non_blocking`` (pinned
+    source); the kernels that read a buffer and the copy that next writes
+    it are ordered on the one stream."""
+
+    def __init__(self, devices, block: int):
+        self.devices = devices
+        self.block = block
+        self._bufs: Dict[tuple, torch.Tensor] = {}
+
+    def __call__(self, i: int, j: int, host: torch.Tensor, off: int):
+        part = host[off:off + self.block]
+        buf = self._bufs.get((i, j))
+        if buf is None or buf.dtype != host.dtype:
+            buf = torch.empty(self.block, dtype=host.dtype,
+                              device=self.devices[i])
+            self._bufs[(i, j)] = buf
+        view = buf[:part.numel()]
+        view.copy_(part, non_blocking=True)
+        return view
+
+
 class ShardedSolver:
     """Hash-partitioned level-synchronous solver over a shard mesh.
 
@@ -347,12 +434,21 @@ class ShardedSolver:
         self.backward_block = _backward_block()
         self.device_store_bytes = env_int("GAMESMAN_DEVICE_STORE_MB",
                                           8192) << 20
+        #: per-shard window width above which a solved level streams
+        self.window_block = _window_block()
+        #: window blocks streamed through the device (0: all resident)
+        self.window_stream_blocks = 0
+        self._upload: Optional[_Uploader] = None
         #: levels resolved by the edge-cached backward
         self.backward_edges_levels = 0
         #: bytes of edges and of level states moved to host RAM past the
         #: device-store budget
         self.edges_bytes_spilled = 0
         self.states_bytes_spilled = 0
+        #: spilled edges kept in host RAM (counted against the store
+        #: cache's budget), and those left on disk only (the disk tier)
+        self._host_spill_bytes = 0
+        self.edges_bytes_disk = 0
         #: host synchronisations: control gathers, dedup sizes, downloads
         self.syncs = 0
         #: transient level-step failures absorbed by retry
@@ -994,7 +1090,7 @@ class ShardedSolver:
                 rec = levels[k] = _SLevel(sizes, frontier)
             else:  # the resumed prefix's deepest level
                 rec.dev = frontier
-            stored += _nbytes(frontier)
+            stored += _STATE_BYTES * n
             if uniq is None:
                 self.status_tracker.forward_level(
                     k, n, time.perf_counter() - t0)
@@ -1002,7 +1098,8 @@ class ShardedSolver:
                 break
             rec.C = C
             if eidx is not None:
-                extra = _nbytes(eidx) + _nbytes(slot)
+                extra = _edge_bytes(C, sizes, self.game.max_moves)
+                to_disk = False
                 if stored + extra <= self.device_store_bytes:
                     rec.eidx, rec.slot = eidx, slot
                     stored += extra
@@ -1012,7 +1109,19 @@ class ShardedSolver:
                     rec.eidx = [e.cpu() for e in eidx]
                     rec.slot = [s.cpu() for s in slot]
                     self.edges_bytes_spilled += extra
+                    # The disk tier: the host tier is full too and the
+                    # checkpointer seals the edges anyway.
+                    to_disk = (self.checkpointer is not None
+                               and self._host_spill_bytes + extra
+                               > self.store.cache.budget_bytes)
+                    if not to_disk:
+                        self._host_spill_bytes += extra
                 self._ckpt_edges_level(k, rec)
+                if to_disk:
+                    # The sealed files are the copy now: the save path
+                    # holds its own host arrays until they land.
+                    rec.eidx = rec.slot = None
+                    self.edges_bytes_disk += extra
             self._spill_if_over(rec, stored)
             self._ckpt_forward_level(k + 1, uniq)
             secs = time.perf_counter() - t0
@@ -1073,7 +1182,7 @@ class ShardedSolver:
                 "sharded.forward", _step, level=k,
                 entry=lambda k=k: faults.fire("sharded.forward", level=k))
             rec = levels[k] = _SLevel(sizes, frontier)
-            stored += _nbytes(frontier)
+            stored += _STATE_BYTES * int(sizes.sum())
             self._spill_if_over(rec, stored)
             width = int(sizes.sum())
             fields = {}
@@ -1122,13 +1231,17 @@ class ShardedSolver:
         """Resolve one level from its stored edges: the indices go to the
         owners, the owners gather packed cells of the level below, the
         cells come back and land by ``slot``. No search, no re-expansion.
-        window: per local shard, (values, remoteness) of level k+1."""
+        window: per local shard, (values, remoteness) of level k+1, or
+        that level's :class:`_Spilled` copy (the gather streams it)."""
         g, mesh = self.game, self.mesh
         eidx = [e.to(d) for e, d in zip(rec.eidx, mesh.devices)]
         slots = [s.to(d) for s, d in zip(rec.slot, mesh.devices)]
         q = all_to_all(mesh, eidx, rec.C, "route")
-        cells = [gather_cells(qo, wv, wr).view(torch.int32)
-                 for qo, (wv, wr) in zip(q, window)]
+        if isinstance(window, _Spilled):
+            cells = self._gather_streamed(q, window)
+        else:
+            cells = [gather_cells(qo, wv, wr).view(torch.int32)
+                     for qo, (wv, wr) in zip(q, window)]
         got = all_to_all(mesh, cells, rec.C.T, "reply")
         out = []
         for st, slot, gs in zip(states, slots, got):
@@ -1142,11 +1255,52 @@ class ShardedSolver:
             out.append((*_finish(values, rem, prim, undecided), misses))
         return out
 
-    def _resolve_lookup(self, states, window):
+    def _stream_blocks(self, width: int) -> int:
+        """The block of a streamed window level `width` wide (the widest
+        shard's count): the reference's ``min(window_block, cap)``."""
+        return min(self.window_block, bucket_size(width))
+
+    def _uploader(self, wb: int) -> _Uploader:
+        if self._upload is None or self._upload.block != wb:
+            self._upload = _Uploader(self.mesh.devices, wb)
+        return self._upload
+
+    def _gather_streamed(self, q, spilled: _Spilled):
+        """The edges' owner-side gather over a spilled level k+1: per
+        block of each shard's exact slice, upload its values and
+        remoteness, gather the indices that fall in it, keep those."""
+        wb = self._stream_blocks(spilled.width)
+        up = self._uploader(wb)
+        self.window_stream_blocks += -(-spilled.width // wb)
+        out = []
+        for i, (qo, (_, hv, hr)) in enumerate(zip(q, spilled.shards)):
+            acc = torch.zeros(qo.shape, dtype=torch.int32, device=qo.device)
+            for off in range(0, hv.numel(), wb):
+                wv, wr = up(i, 1, hv, off), up(i, 2, hr, off)
+                hit = (qo >= off) & (qo < off + wv.numel())
+                got = gather_cells(torch.where(hit, qo - off, -1), wv, wr)
+                acc = torch.where(hit, got.view(torch.int32), acc)
+            out.append(acc)
+        return out
+
+    @staticmethod
+    def _window_streamed(i: int, spilled, up: _Uploader):
+        """Shard i's blocks of every spilled window level, uploaded one
+        at a time into the reused buffers (a generator: lookup_window
+        enqueues its work on a block before the next upload overwrites
+        the buffer, in stream order)."""
+        for sp in spilled:
+            hs, hv, hr = sp.shards[i]
+            for off in range(0, hs.numel(), up.block):
+                yield up(i, 0, hs, off), up(i, 1, hv, off), up(i, 2, hr, off)
+
+    def _resolve_lookup(self, states, window, spilled=None):
         """Resolve one block of rows by the lookup join: regenerate each
         row's children, route them to their owners, look them up in the
         owners' window slices, reply, un-permute, combine.
-        window: per local shard, a list of (states, values, remoteness)."""
+        window: per local shard, a list of (states, values, remoteness);
+        or `spilled`, the window levels' :class:`_Spilled` copies, looked
+        up block by block."""
         S, mesh = self.S, self.mesh
         sends, rows, kept = [], [], []
         for st in states:
@@ -1159,6 +1313,13 @@ class ShardedSolver:
         q = all_to_all(mesh, sends, Cq, "route")
         del sends
         cells = []
+        if spilled is not None:
+            up = self._uploader(min(self._stream_blocks(sp.width)
+                                    for sp in spilled))
+            for sp in spilled:
+                self.window_stream_blocks += -(-sp.width // up.block)
+            window = [self._window_streamed(i, spilled, up)
+                      for i in range(len(q))]
         for qo, win in zip(q, window):
             v, r, _ = lookup_window(qo, win)
             cells.append(pack_cells(v, r).view(torch.int32))
@@ -1174,13 +1335,14 @@ class ShardedSolver:
             out.append((*_finish(values, rem, prim, undecided), misses))
         return out
 
-    def _resolve_blocked(self, rec: _SLevel, states, window):
+    def _resolve_blocked(self, rec: _SLevel, states, window, spilled=None):
         """The lookup join in blocks of backward_block rows; every rank
-        runs the same number of blocks (from the global counts)."""
+        runs the same number of blocks (from the global counts). With
+        `spilled` each block streams the window anew."""
         step = self.backward_block
         nb = max(1, math.ceil(int(rec.counts.max()) / step))
         parts = [self._resolve_lookup(
-            [st[b * step:(b + 1) * step] for st in states], window)
+            [st[b * step:(b + 1) * step] for st in states], window, spilled)
             for b in range(nb)]
         return [(torch.cat([p[i][0] for p in parts]),
                  torch.cat([p[i][1] for p in parts]),
@@ -1200,20 +1362,25 @@ class ShardedSolver:
                           r.cpu().numpy())
 
     def _level_step(self, k: int, root: int, rec: _SLevel, states,
-                    cache: Dict[int, list]):
+                    cache: Dict[int, object]):
         """Resolve level k (edges when its edges and level k+1 are at
         hand, else the lookup join), then its paranoid check and its
-        global table. Returns (per local shard (values, remoteness),
-        misses, paranoid count or None, table or None)."""
+        global table. `cache`: level -> per local shard device triples,
+        or the level's :class:`_Spilled` copy. Returns (per local shard
+        (values, remoteness), misses, paranoid count or None, table or
+        None)."""
         g = self.game
+        wl = [k + j for j in range(1, g.max_level_jump + 1) if k + j in cache]
         if self.use_edges and rec.eidx is not None and (k + 1) in cache:
+            w = cache[k + 1]
             res = self._resolve_edges(
-                rec, states, [(v, r) for _, v, r in cache[k + 1]])
+                rec, states,
+                w if isinstance(w, _Spilled) else [(v, r) for _, v, r in w])
+        elif any(isinstance(cache[L], _Spilled) for L in wl):
+            res = self._resolve_blocked(rec, states, None,
+                                        [cache[L] for L in wl])
         else:
-            window = [[cache[k + j][i] for j in range(1, g.max_level_jump
-                                                       + 1)
-                       if (k + j) in cache]
-                      for i in range(len(states))]
+            window = [[cache[L][i] for L in wl] for i in range(len(states))]
             res = self._resolve_blocked(rec, states, window)
         values = [x[0] for x in res]
         rems = [x[1] for x in res]
@@ -1257,7 +1424,8 @@ class ShardedSolver:
         self._flush_seals()
         completed = set(ck.completed_levels()) if ck is not None else set()
         resolved: Dict[int, LevelTable] = {}
-        cache: Dict[int, list] = {}  # level -> per local shard triples
+        # level -> per local shard device triples, or a _Spilled copy
+        cache: Dict[int, object] = {}
         answer = None
         order = sorted(levels, reverse=True)
         for i, k in enumerate(order):
@@ -1286,7 +1454,7 @@ class ShardedSolver:
                 except TORN_NPZ_ERRORS as e:
                     # Torn or crc-mismatching: quarantine and recompute
                     # (the frontier is known, the deeper window solved).
-                    ck.quarantine_and_log(k, e)
+                    ck.quarantine_and_log(k, e, self.logger)
             if loaded is not None:
                 values, rems = loaded
                 table = (self._materialize(rec, states, values, rems)
@@ -1297,6 +1465,8 @@ class ShardedSolver:
                     self._load_edges(k, rec)
                 edges = self.use_edges and rec.eidx is not None and (
                     k + 1) in cache
+                if not edges:
+                    self._spill_window(k, levels, cache)
 
                 def _level(k=k, rec=rec, states=states):
                     return self._level_step(k, root, rec, states, cache)
@@ -1325,7 +1495,14 @@ class ShardedSolver:
                     "sharded.backward", _root, level=k,
                     entry=lambda k=k: faults.fire("sharded.backward",
                                                   level=k))
-            cache[k] = list(zip(states, values, rems))
+            if bucket_size(int(rec.counts.max())) <= self.window_block:
+                cache[k] = list(zip(states, values, rems))
+            else:
+                # Too wide to stay on the device as a window: the
+                # shallower levels stream it back in blocks.
+                cache[k] = _Spilled(rec.counts.max(),
+                                    zip(states, values, rems),
+                                    self.mesh.home.type == "cuda")
             rec.dev = rec.host = rec.eidx = rec.slot = None
             for done in [d for d in cache if d > k + g.max_level_jump]:
                 del cache[done]
@@ -1338,6 +1515,21 @@ class ShardedSolver:
                                                resumed=resumed)
             flightrec.boundary("backward", k)
         return resolved, answer
+
+    def _spill_window(self, k: int, levels: Dict[int, _SLevel],
+                      cache: Dict[int, object]) -> None:
+        """Before a lookup resolve of level k: once one level of its
+        window is spilled, move the resident ones to the host as well
+        (one download each; shallower levels reuse the copy), so the
+        whole window streams."""
+        wl = [k + j for j in range(1, self.game.max_level_jump + 1)
+              if k + j in cache]
+        if not any(isinstance(cache[L], _Spilled) for L in wl):
+            return
+        for L in wl:
+            if not isinstance(cache[L], _Spilled):
+                cache[L] = _Spilled(levels[L].counts.max(), cache[L],
+                                    self.mesh.home.type == "cuda")
 
     def _store_stats(self, t0: dict) -> dict:
         """This solve's block-store I/O deltas (the store is process-wide;
@@ -1541,7 +1733,9 @@ class ShardedSolver:
             "exchange_calls": dict(traffic.calls),
             "exchange_secs": traffic.seconds(),
             "edges_bytes_spilled": self.edges_bytes_spilled,
+            "edges_bytes_disk": self.edges_bytes_disk,
             "states_bytes_spilled": self.states_bytes_spilled,
+            "window_stream_blocks": self.window_stream_blocks,
             "resharded_from": self.resharded_from,
             "edges_geometry_fallback_levels":
                 self.edges_geometry_fallback_levels,

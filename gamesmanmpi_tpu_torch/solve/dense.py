@@ -15,7 +15,7 @@ Positions are indexed perfectly instead of discovered:
   -> negamax combine (ops/combine.py).
 - Reachable positions (Tromp's counts) come from a separate forward
   **reachability sweep** with "unmove" tables, cached per board per
-  process.
+  process and across processes in the counts file (below).
 
 The child-cell gather is the one hand-written kernel on this path
 (``gather_mode="window"``, the default): invalid rows and pad lanes get a
@@ -30,9 +30,20 @@ kernel, ``plain`` the plain gather; ``sorted`` is not ported.
 All tensors are int64 (bitboards, ranks, flat indices) or uint8 (cells);
 see core/bitops.py. The reference's TPU-only machinery is not carried
 over: the one-hot binomial select tree (the card indexes the [ncells+1, K]
-table directly), the relay run-ahead drain, background compiles. Not yet
-ported (ROADMAP): the counts file, _rank_all_moves_fused and the sorted
-gather mode.
+table directly), the relay run-ahead drain, background compiles. Not
+ported: _rank_all_moves_fused, and the sorted gather mode (an XLA hint;
+ROADMAP keeps it until a card profile shows a sorted-index gather pays).
+
+**The counts file** (``GAMESMAN_DENSE_COUNTS_FILE``; default
+``.dense_counts.json`` at the repository root, ``0`` turns it off), the
+reference's format, so either package reads the other's: one JSON object
+keyed by board (``WxHxC``), each entry stamped with the schema version
+and the board and checked for the sweep's invariants before it is
+trusted (a stale or hand-edited entry means one sweep again). A process
+that sweeps merges its counts in under ``<file>.lock``. The sweep then
+costs a board once across processes; ``stats["reach_counts_source"]``
+says where a solve's counts came from: ``sweep``, ``file`` or
+``process`` (the in-process cache).
 
 **The mesh** (``devices=N``, parallel/mesh.Mesh in one process): every
 level step's [P, cblock] lanes are split over the N shards, each shard
@@ -68,7 +79,10 @@ watchdog (``GAMESMAN_WATCHDOG_SECS``) and the ``/status`` server
 
 from __future__ import annotations
 
+import contextlib
+import json
 import math
+import os
 import time
 from typing import Dict, Optional
 
@@ -617,8 +631,98 @@ class DenseSolveResult:
 
 
 # Reachable-position counts are a property of the board, not the solve:
-# one sweep per board per process, reused by every later solve.
+# one sweep per board per process, reused by every later solve, and the
+# counts file carries them across processes.
 _REACH_COUNTS: Dict[tuple, Dict[int, int]] = {}
+
+
+def _counts_file() -> Optional[str]:
+    """The counts file's path (GAMESMAN_DENSE_COUNTS_FILE; "0" = off;
+    default .dense_counts.json at the repository root, the reference's
+    place, so both packages share it)."""
+    path = env_opt("GAMESMAN_DENSE_COUNTS_FILE")
+    if path == "0":
+        return None
+    if path:
+        return path
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(root, ".dense_counts.json")
+
+
+#: Bumped when what a reachable count means changes; stamped into every
+#: entry, so an older engine's file cannot feed a solve's positions.
+_COUNTS_SCHEMA_VERSION = 2
+
+
+def _counts_tag(board_key: tuple) -> str:
+    return "x".join(str(k) for k in board_key)
+
+
+def _load_cached_counts(board_key: tuple) -> Optional[Dict[int, int]]:
+    """The board's counts from the counts file, or None when the file is
+    off, missing or unreadable, or its entry is unstamped, stale or fails
+    the invariants of any sweep (one empty board at level 0, no negative
+    count, no level past the cell count)."""
+    path = _counts_file()
+    if path is None or not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            data = json.load(f)
+        rec = data.get(_counts_tag(board_key))
+        if (not isinstance(rec, dict)
+                or rec.get("version") != _COUNTS_SCHEMA_VERSION
+                or rec.get("board") != _counts_tag(board_key)
+                or not isinstance(rec.get("counts"), dict)):
+            return None
+        counts = {int(k): int(v) for k, v in rec["counts"].items()}
+        w, h = board_key[0], board_key[1]
+        if counts.get(0) != 1 or any(v < 0 or k < 0 or k > w * h
+                                     for k, v in counts.items()):
+            return None
+        return counts
+    except (OSError, ValueError, AttributeError):
+        return None
+
+
+def _store_cached_counts(board_key: tuple, counts: Dict[int, int]) -> None:
+    """Merge the board's counts into the counts file: load, merge and
+    replace under an exclusive lock on ``<file>.lock``, through a private
+    temporary file, so two processes never drop each other's entry.
+    Best effort: an I/O failure leaves the file as it was."""
+    path = _counts_file()
+    if path is None:
+        return
+    try:
+        import fcntl
+    except ImportError:  # pragma: no cover - non-POSIX: lockless
+        fcntl = None
+    try:
+        with contextlib.ExitStack() as stack:
+            if fcntl is not None:
+                lockf = stack.enter_context(open(f"{path}.lock", "w"))
+                fcntl.flock(lockf, fcntl.LOCK_EX)
+            data = {}
+            if os.path.exists(path):
+                try:
+                    with open(path) as f:
+                        data = json.load(f)
+                except ValueError:
+                    data = {}  # a torn or edited file: replace it
+            if not isinstance(data, dict):
+                data = {}
+            data[_counts_tag(board_key)] = {
+                "version": _COUNTS_SCHEMA_VERSION,
+                "board": _counts_tag(board_key),
+                "counts": {str(k): v for k, v in counts.items()},
+            }
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                json.dump(data, f)
+            os.replace(tmp, path)
+    except OSError:
+        pass
 
 _TABLES: Dict[tuple, DenseTables] = {}
 
@@ -734,6 +838,9 @@ class DenseSolver:
         self.block_elems = int(block_elems or DEFAULT_BLOCK_ELEMS)
         self._consts: dict = {}
         self._binoms: dict = {}
+        #: where reachable_counts took the counts from: "sweep", "file"
+        #: or "process" (None before it ran)
+        self.reach_counts_source: Optional[str] = None
         self._binom = self._binom_on(self.device)
 
     @property
@@ -889,12 +996,22 @@ class DenseSolver:
         return counts, reach
 
     def reachable_counts(self) -> Dict[int, int]:
-        """Exact per-level reachable-position counts (cached per process)."""
+        """Exact per-level reachable-position counts: the process's cache,
+        else the counts file, else a full sweep (recorded in both).
+        ``reach_counts_source`` says which."""
         cached = _REACH_COUNTS.get(self._board_key)
         if cached is not None:
+            self.reach_counts_source = "process"
+            return cached
+        cached = _load_cached_counts(self._board_key)
+        if cached is not None:
+            _REACH_COUNTS[self._board_key] = cached
+            self.reach_counts_source = "file"
             return cached
         counts, _ = self._sweep_levels(self.tables.ncells)
         _REACH_COUNTS[self._board_key] = counts
+        _store_cached_counts(self._board_key, counts)
+        self.reach_counts_source = "sweep"
         return counts
 
     def _backward_level(self, L: int, child_flat):
@@ -1047,12 +1164,10 @@ class DenseSolver:
         value, remoteness = root_cell & 3, root_cell >> 2
         solve_secs = time.perf_counter() - t0
 
-        counted = _REACH_COUNTS.get(self._board_key)
-        count_secs = 0.0
-        if counted is None:
-            tc = time.perf_counter()
-            counted = self.reachable_counts()
-            count_secs = time.perf_counter() - tc
+        tc = time.perf_counter()
+        counted = self.reachable_counts()
+        count_secs = (time.perf_counter() - tc
+                      if self.reach_counts_source != "process" else 0.0)
         positions = sum(counted.values())
 
         stats = {
@@ -1068,8 +1183,10 @@ class DenseSolver:
             "secs_backward": solve_secs,
             "secs_total": solve_secs,
             # Excluded from secs_total: a per-board constant, computed
-            # once per process, not part of the solve.
+            # once per board (the counts file) or per process, not part
+            # of the solve.
             "secs_count_reachable": count_secs,
+            "reach_counts_source": self.reach_counts_source,
             # A resumed run computed only some levels: report 0 rather
             # than credit it with the whole board.
             "positions_per_sec": (

@@ -58,17 +58,32 @@ exit 124 on a stall) and the live ``/status`` server
 runs the host-memory guard (resilience/memguard.py) and notes the level
 in the flight recorder (obs/flightrec.boundary).
 
+The backward's pipeline (``GAMESMAN_PIPELINE``, ops/fused.pipeline_mode),
+as the reference's fast path runs it. A level's host tail is its table's
+download, the level sink, the checkpoint seal and the release of its
+forward copies. Under ``level`` (the default) the tail runs before the
+next level is enqueued. Under ``pingpong`` level k's tail runs after
+level k-1's resolve is enqueued. On the card the level's arrays then
+download on a copy stream of their own, which waits on an event recorded
+after the level's resolve, into one of two sets of pinned host buffers
+that alternate between levels (:class:`_PinnedPipe`); the tail reads a
+set only after its copy event completed. The seconds the deferred tails
+run with a resolve in flight are ``stats["overlap_secs"]``. The root
+level's tail runs before the backward returns, and a preemption at a
+level boundary runs the pending tail before it stops. Tables, checkpoint
+files and DB files are byte for byte the same in both modes. The generic
+path keeps the ``level`` order, as the reference's does.
+
 What the port leaves out of the reference's machinery: background
 precompiles and power-of-two capacity buckets (they bound XLA's compiled
 shapes; eager torch runs every level at its exact size), speculation,
-the analytic sort/gather byte and dispatch counts, and the fused/pingpong
-modes.
+the analytic sort/gather byte and dispatch counts, and the fused modes.
 
 Host synchronisation: one per forward level, inside ``torch.unique``
 (the unique count sizes the next level); the backward resolves in blocks
 of ``GAMESMAN_BACKWARD_BLOCK`` rows with no sync, and downloads a level's
 table when the result keeps it, a level sink takes it or a checkpoint
-seals it (one ``.cpu()`` per array per level). Lookup misses and
+seals it (one copy per array per level). Lookup misses and
 non-primitive positions without moves are counted on the device
 (``stats["misses"]``, read once at the end) and raise per level only
 under ``paranoid``.
@@ -98,6 +113,7 @@ from gamesmanmpi_tpu_torch.obs import (
 )
 from gamesmanmpi_tpu_torch.ops.combine import combine_children
 from gamesmanmpi_tpu_torch.ops.dedup import unique_tailed, with_sentinel_slot
+from gamesmanmpi_tpu_torch.ops.fused import pipeline_mode
 from gamesmanmpi_tpu_torch.ops.lookup import lookup_window
 from gamesmanmpi_tpu_torch.ops.provenance import gather_cells, uidx_from_inverse
 from gamesmanmpi_tpu_torch.resilience import faults, memguard, preempt
@@ -293,6 +309,64 @@ def _backward_block() -> int:
     return n if n > 0 else 1 << 62
 
 
+class _PinnedPipe:
+    """The pingpong backward's downloads on the card: a copy stream and
+    two sets of pinned host buffers that alternate between levels.
+
+    :meth:`download` records an event on the current (compute) stream
+    after the level's resolve, makes the copy stream wait on it, copies
+    each tensor into the set's pinned buffers there and records the
+    set's copy event. The tensors are marked used by the copy stream
+    (``record_stream``), so the allocator does not hand their memory to
+    the compute stream before the copies are done. The returned fetch
+    waits on the copy event and hands back host copies of the buffers:
+    a set is written again two levels later, after its previous fetch
+    ran, and every reuse first waits on the set's last copy event."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self._bufs: List[Dict[int, torch.Tensor]] = [{}, {}]
+        self._done: List[Optional[torch.cuda.Event]] = [None, None]
+        self._turn = 0
+
+    def _buffer(self, i: int, j: int, t: torch.Tensor) -> torch.Tensor:
+        """Set i's pinned buffer for the j-th tensor, grown to fit t."""
+        buf = self._bufs[i].get(j)
+        if buf is None or buf.dtype != t.dtype or buf.numel() < t.numel():
+            buf = self._bufs[i][j] = torch.empty(
+                max(t.numel(), 1), dtype=t.dtype, pin_memory=True)
+        return buf
+
+    def download(self, tensors):
+        i = self._turn
+        self._turn ^= 1
+        if self._done[i] is not None:
+            self._done[i].synchronize()  # the set's last copy has landed
+        ready = torch.cuda.Event()
+        ready.record()
+        views = []
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(ready)
+            for j, t in enumerate(tensors):
+                view = self._buffer(i, j, t)[:t.numel()]
+                view.copy_(t, non_blocking=True)
+                t.record_stream(self.stream)
+                views.append(view)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        self._done[i] = done
+
+        def fetch():
+            done.synchronize()
+            # Out of the reused buffers into the table's own arrays:
+            # torch's CPU copy runs on the intra-op threads, a numpy copy
+            # on one.
+            return [torch.empty(v.shape, dtype=v.dtype).copy_(v).numpy()
+                    for v in views]
+
+        return fetch
+
+
 class Solver:
     """Single-device level-synchronous solver for a TensorGame.
 
@@ -339,6 +413,11 @@ class Solver:
                                if use_provenance is None else use_provenance)
         self.backward_block = _backward_block()
         self.device_store_bytes = env_int("GAMESMAN_DEVICE_STORE_MB", 8192) << 20
+        #: the fast backward's pipeline mode (ops/fused.pipeline_mode)
+        self.pipeline = pipeline_mode()
+        #: host seconds the pingpong backward ran deferred level tails
+        #: while a resolve was in flight
+        self.overlap_secs = 0.0
         self.provenance_levels = 0
         #: transient level-step failures absorbed by _retry.
         self.retries = 0
@@ -411,7 +490,7 @@ class Solver:
         try:
             table = ckpt.load_level(k)
         except TORN_NPZ_ERRORS as e:
-            ckpt.quarantine_and_log(k, e)
+            ckpt.quarantine_and_log(k, e, self.logger)
             return None
         if not np.array_equal(table.states, host_states()):
             raise SolverError(f"checkpointed level {k} does not match the "
@@ -419,32 +498,56 @@ class Solver:
                               "directory?")
         return table
 
-    def _finish_level(self, k: int, root: int, table: Optional[LevelTable],
-                      host_states, values, rem,
-                      resolved: Dict[int, LevelTable]) -> int:
-        """A backward level's host tail. `table` is the sealed table when
-        the level was loaded, None when it was resolved: then its table is
-        downloaded (one .cpu() per array) when the result keeps it, the
-        level sink takes it or the checkpoint seals it, and sealed.
-        Returns the bytes of values and remoteness it downloaded."""
-        keep = self.store_tables or k == root
-        resolved_here = table is None
-        downloaded = 0
-        if resolved_here and (keep or self.checkpointer is not None
-                              or self.level_sink is not None):
-            table = LevelTable(host_states(), values.cpu().numpy(),
-                               rem.cpu().numpy())
-            downloaded = table.states.shape[0] * _CELL_BYTES
-        if keep:
+    def _level_fetch(self, k: int, root: int, table: Optional[LevelTable],
+                     host, states, values, rem, pipe=None):
+        """Start a backward level's download. `table` is the sealed table
+        when the level was loaded, None when it was resolved: then the
+        table is needed when the result keeps it, the level sink takes it
+        or the checkpoint seals it. `host` is the level's host states, or
+        None when they are on the device only (`states`). -> (fetch, the
+        bytes it downloads): fetch() returns the level's table or None.
+        With `pipe` (pingpong on the card) the copies are enqueued on its
+        copy stream now; else fetch downloads when it is called."""
+        if table is not None:
+            return (lambda: table), 0
+        if not (self.store_tables or k == root
+                or self.checkpointer is not None
+                or self.level_sink is not None):
+            return (lambda: None), 0
+        n = values.numel()
+        nbytes = n * _CELL_BYTES + (n * _STATE_BYTES if host is None else 0)
+        if pipe is not None:
+            fetched = pipe.download([values, rem] if host is not None
+                                    else [values, rem, states])
+
+            def fetch():
+                got = fetched()
+                return LevelTable(got[2] if host is None else host,
+                                  got[0], got[1])
+        else:
+            def fetch():
+                return LevelTable(states.cpu().numpy() if host is None
+                                  else host,
+                                  values.cpu().numpy(), rem.cpu().numpy())
+        return fetch, nbytes
+
+    def _level_tail(self, k: int, root: int, fetch, resumed: bool,
+                    resolved: Dict[int, LevelTable]) -> None:
+        """A backward level's host tail: its table (fetch()), kept when
+        the result keeps it, handed to the level sink and sealed when it
+        was resolved here."""
+        table = fetch()
+        if table is None:
+            return
+        if self.store_tables or k == root:
             resolved[k] = table
         if self.level_sink is not None:
             with trace_span("db_export", level=k,
                             n=int(table.states.shape[0])):
                 self.level_sink(k, table)
-        if self.checkpointer is not None and resolved_here:
+        if self.checkpointer is not None and not resumed:
             with trace_span("checkpoint", level=k, kind="level"):
                 self.checkpointer.save_level(k, table)
-        return downloaded
 
     def _boundary(self, phase: str, k: int, **progress) -> None:
         """A level boundary: replace ``progress``, then the preemption
@@ -551,49 +654,74 @@ class Solver:
                        misses: List) -> Dict[int, LevelTable]:
         dev = self.device
         resolved: Dict[int, LevelTable] = {}
+        pingpong = self.pipeline == "pingpong"
+        pipe = _PinnedPipe(dev) if pingpong and dev.type == "cuda" else None
+        pending = None  # pingpong: the deeper level's deferred tail
         prev = None  # (states, values, remoteness) of level k+1 on device
-        for k in sorted(levels, reverse=True):
-            rec = levels[k]
-            sp = Span("backward", logger=self.logger, level=k)
-            self._boundary("backward", k, n=rec.n)
-            uploaded = rec.dev is None
-            states = (rec.dev if rec.dev is not None
-                      else torch.from_numpy(rec.host).to(dev))
-            had_host = rec.host is not None
-            table = self._load_sealed(k, rec.host_states)
-            resumed = table is not None
-            if table is not None:
-                values = torch.from_numpy(table.values).to(dev)
-                rem = torch.from_numpy(table.remoteness).to(dev)
-            else:
-                def _resolve(rec=rec, states=states, prev=prev, k=k):
-                    faults.fire("engine.backward", level=k)
-                    if prev is not None and rec.uidx is not None:
-                        return self._resolve_blocked_prov(rec, prev[1],
-                                                          prev[2])
-                    window = [prev] if prev is not None else []
-                    return self._resolve_blocked(states, window)
+        try:
+            for k in sorted(levels, reverse=True):
+                rec = levels[k]
+                sp = Span("backward", logger=self.logger, level=k)
+                self._boundary("backward", k, n=rec.n)
+                uploaded = rec.dev is None
+                states = (rec.dev if rec.dev is not None
+                          else torch.from_numpy(rec.host).to(dev))
+                had_host = rec.host is not None
+                table = self._load_sealed(k, rec.host_states)
+                resumed = table is not None
+                if table is not None:
+                    values = torch.from_numpy(table.values).to(dev)
+                    rem = torch.from_numpy(table.remoteness).to(dev)
+                else:
+                    def _resolve(rec=rec, states=states, prev=prev, k=k):
+                        faults.fire("engine.backward", level=k)
+                        if prev is not None and rec.uidx is not None:
+                            return self._resolve_blocked_prov(
+                                rec, prev[1], prev[2])
+                        window = [prev] if prev is not None else []
+                        return self._resolve_blocked(states, window)
 
-                values, rem, miss = self._retry("engine.backward", _resolve,
-                                                level=k)
-                misses.append(miss)
-                self._misses_check(k, miss)
-            prev = (states, values, rem)
-            host_bytes = self._finish_level(k, root, table, rec.host_states,
-                                            values, rem, resolved)
-            if uploaded:
-                host_bytes += rec.n * _STATE_BYTES
-            if not had_host and rec.host is not None:
-                host_bytes += rec.n * _STATE_BYTES
-            self.bytes_host += host_bytes
-            # Release the forward copies and provenance of this level.
-            rec.dev = rec.prim = rec.uidx = None
-            if not self.store_tables:
-                rec.host = None
-            sp.end(n=rec.n, resumed=resumed, bytes_host=host_bytes)
-            self.status_tracker.backward_level(k, rec.n, sp.secs,
-                                               resumed=resumed)
-            flightrec.boundary("backward", k)
+                    values, rem, miss = self._retry("engine.backward",
+                                                    _resolve, level=k)
+                    misses.append(miss)
+                    self._misses_check(k, miss)
+                prev = (states, values, rem)
+                host_bytes = rec.n * _STATE_BYTES if uploaded else 0
+                if not had_host and rec.host is not None:
+                    host_bytes += rec.n * _STATE_BYTES  # the resume's check
+                fetch, down = self._level_fetch(k, root, table, rec.host,
+                                                states, values, rem, pipe)
+                host_bytes += down
+                tail = (lambda k=k, fetch=fetch, resumed=resumed:
+                        self._level_tail(k, root, fetch, resumed, resolved))
+                if pending is not None:
+                    # The deeper level's tail, with this level's resolve
+                    # in flight: the pipeline's overlap.
+                    t0 = time.perf_counter()
+                    pending()
+                    self.overlap_secs += time.perf_counter() - t0
+                    pending = None
+                if pingpong:
+                    pending = tail
+                else:
+                    tail()
+                self.bytes_host += host_bytes
+                # Release the forward copies and provenance of this level
+                # (the tail holds what it downloads).
+                rec.dev = rec.prim = rec.uidx = None
+                if not self.store_tables:
+                    rec.host = None
+                sp.end(n=rec.n, resumed=resumed, bytes_host=host_bytes)
+                self.status_tracker.backward_level(k, rec.n, sp.secs,
+                                                   resumed=resumed)
+                flightrec.boundary("backward", k)
+        except preempt.PreemptionRequested:
+            # Everything resolved before the boundary is sealed first.
+            if pending is not None:
+                pending()
+            raise
+        if pending is not None:
+            pending()  # the root level's tail
         return resolved
 
     # ------------------------------------------------------- generic path
@@ -661,8 +789,10 @@ class Solver:
                 misses.append(miss)
                 self._misses_check(k, miss)
             # The pool uploads every level; its states never download.
-            host_bytes = n * _STATE_BYTES + self._finish_level(
-                k, root, table, lambda k=k: pools[k], values, rem, resolved)
+            fetch, down = self._level_fetch(k, root, table, pools[k],
+                                            states, values, rem)
+            self._level_tail(k, root, fetch, resumed, resolved)
+            host_bytes = n * _STATE_BYTES + down
             self.bytes_host += host_bytes
             sp.end(n=n, resumed=resumed, bytes_host=host_bytes)
             self.status_tracker.backward_level(k, n, sp.secs,
@@ -766,6 +896,8 @@ class Solver:
             "misses": total_misses,
             "retries": self.retries,
             "bytes_host": self.bytes_host,
+            "overlap_secs": round(self.overlap_secs, 3),
+            "pipeline": self.pipeline,
             # Device memory is a card metric: None for a CPU solve.
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(self.device)
                                if cuda else None),

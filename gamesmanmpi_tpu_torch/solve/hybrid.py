@@ -49,6 +49,12 @@ Everything here is eager torch on the int64 carrier around the dense
 engine's steps; none of these steps is a kernel in the reference either.
 devices > 1 rank-partitions the dense region over the mesh and shards
 the BFS region; the extraction and the join stay on the home device.
+
+Records (``logger=``), the reference's: ``hybrid_sweep`` (boundary,
+frontier, reachable, secs) after the extraction, ``hybrid_bfs``
+(levels, positions, secs) after the BFS region, and ``done`` with the
+solve's stats. The dense half gets the logger too; as in the reference,
+only its solve() writes records, which the hybrid never calls.
 """
 
 from __future__ import annotations
@@ -288,17 +294,20 @@ class HybridSolver:
     cutover: the last dense level K, 0 <= K < ncells; None reads
     GAMESMAN_HYBRID_CUTOVER, else :func:`default_cutover`. A bad value
     raises ValueError. devices: 1, or N shards for both regions.
-    device: "cuda" (default) or "cpu".
+    device: "cuda" (default) or "cpu". logger: a utils/metrics logger
+    for the records (module docstring).
     """
 
     def __init__(self, game: Connect4, cutover: Optional[int] = None,
-                 store_tables: bool = True, device="cuda", devices: int = 1):
+                 store_tables: bool = True, device="cuda", devices: int = 1,
+                 logger=None):
         if not isinstance(game, Connect4):
             raise TypeError("HybridSolver requires a Connect4-family game")
         self.game = game
         self.dense_game = (Connect4(game.width, game.height, game.connect,
                                     sym=False) if game.sym else game)
         self.store_tables = store_tables
+        self.logger = logger
         self.devices = int(devices)
         if self.devices < 1:
             raise ValueError(f"devices must be >= 1, got {devices}")
@@ -309,7 +318,8 @@ class HybridSolver:
                                           2048)
         self.wblock = env_int_strict("GAMESMAN_HYBRID_WBLOCK", 1 << 22)
         self.dense = DenseSolver(self.dense_game, store_tables=store_tables,
-                                 device=device, devices=self.devices)
+                                 device=device, devices=self.devices,
+                                 logger=logger)
         self.device = self.dense.device
         self.tables = self.dense.tables
         nc = self.tables.ncells
@@ -322,6 +332,10 @@ class HybridSolver:
         self.cutover = int(cutover)
 
     # ------------------------------------------------------------- phases
+
+    def _log(self, **rec) -> None:
+        if self.logger is not None:
+            self.logger.log(rec)
 
     def _guards(self, level: int) -> torch.Tensor:
         return torch.as_tensor(
@@ -465,9 +479,16 @@ class HybridSolver:
                 f"states but the sweep counted {counts[B]} "
                 f"(sym={int(g.sym)}) — extraction/sweep disagree")
         t_sweep = time.perf_counter() - t0
+        # frontier: what the BFS region is handed (representatives under
+        # sym=1); reachable: the sweep's full-space count.
+        self._log(phase="hybrid_sweep", boundary=B,
+                  frontier=int(frontier.shape[0]), reachable=counts[B],
+                  secs=round(t_sweep, 3))
 
         resolved, bfs_counts = self._bfs(frontier, B)
         t_bfs = time.perf_counter() - t0 - t_sweep
+        self._log(phase="hybrid_bfs", levels=len(bfs_counts),
+                  positions=sum(bfs_counts.values()), secs=round(t_bfs, 3))
 
         kstates, kcells = self._dense_cell_table(resolved[B])
         boundary = self._resolve_boundary(kstates, kcells)
@@ -518,6 +539,8 @@ class HybridSolver:
                                if cuda else None),
         }
         stats["gather_nmiss"] = sum(stats["gather_nmiss_per_level"].values())
+        self._log(phase="done", **{k: v for k, v in stats.items()
+                                   if k != "game"})
         return HybridSolveResult(
             g, t, K, value, remoteness, saved,
             dict(resolved) if self.store_tables else None, stats)

@@ -41,8 +41,9 @@ The disk budget of a campaign (resilience/campaign.py): ``artifact_kind``,
 ``disk_usage`` (the ``gamesman_ckpt_bytes{kind}`` gauges),
 ``quarantine_inventory``, ``referenced_files`` and ``gc_superseded``,
 which work on filenames and the manifest alone, so on either package's
-directory, one device or sharded. Not ported yet (ROADMAP): the JSONL
-observability hooks.
+directory, one device or sharded. A degraded level writes the
+reference's ``ckpt_degraded`` record to the solver's logger
+(:meth:`LevelCheckpointer.quarantine_and_log`).
 """
 
 from __future__ import annotations
@@ -51,7 +52,6 @@ import hashlib
 import json
 import os
 import pathlib
-import sys
 import time
 import warnings
 
@@ -351,13 +351,15 @@ class LevelCheckpointer:
         manifest.get("sharded_levels", {}).pop(str(level), None)
         self._write_manifest(manifest)
 
-    def quarantine_and_log(self, level: int, exc) -> None:
+    def quarantine_and_log(self, level: int, exc, logger=None) -> None:
         """The one degrade contract of every resume path: quarantine the
-        level and say so on stderr (the reference's ``ckpt_degraded``
-        record; the port has no JSONL logger yet)."""
+        level's sealed files and write the ``ckpt_degraded`` record
+        (phase, level and the error cut to 200 characters) to the
+        solver's logger."""
         self.quarantine_level(level)
-        print(f"[checkpoint] level {int(level)} degraded, recomputing: "
-              f"{str(exc)[:200]}", file=sys.stderr)
+        if logger is not None:
+            logger.log({"phase": "ckpt_degraded", "level": int(level),
+                        "error": str(exc)[:200]})
 
     def _quarantine_frontier(self, level: int) -> None:
         """Quarantine one frontier level and truncate the discovery prefix
