@@ -23,14 +23,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              tensors and on views one element in (the scalar path). Then
              at 32M the kernel, the library call and the plain version
              timed in turns, beside the byte bound.
-5. dense 4x4 — window-kernel and plain-gather solves on the card give
+5. dense 4x4 — level-kernel and plain-step solves on the card give
              byte-identical cells and 161,029 positions; 5x4 gives
              3,945,711 positions, TIE, remoteness 20; 3x4 connect-3 on the
              card equals the same solve on the CPU.
 6. dense 5x5 — the CLI entry point (`solve connect4:w=5,h=5`, device
              cuda) with the launch counts reset just before and read just
-             after: 69,763,700 positions, TIE, remoteness 25, kernel
-             launches > 0.
+             after: 69,763,700 positions, TIE, remoteness 25, launches
+             of both level kernels (dense_step, reach_step) > 0.
 7. microbench — first the window gather bit-identical to its plain
              version (and `nmiss` equal) at section 7b's shape, a uint32
              [8M] table and a sorted int32 [32M] index; then the op-level
@@ -58,9 +58,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              positions answering as phase 9's `lookup`.
 11. checkpoint dense 5x5 — `solve connect4:w=5,h=5 --engine dense
              --checkpoint-dir D2` in-process, uninterrupted, both ways (the
-             gather's launches counted); then in a child process, SIGKILLed once the
+             level kernels' launches counted); then in a child process, SIGKILLed once the
              manifest lists 5 dense levels; the rerun on D2 resumes
-             (`levels_resumed` > 0), launches the window gather on the
+             (`levels_resumed` > 0), launches the backward kernel on the
              levels it recomputes (`nmiss` counted there), and every
              dense_NNNN.npz holds phase 6's cells byte for byte.
 12. db 5x5 — the solved-position DB, in CLI children: `export-db` from
@@ -127,17 +127,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              and a one-process --devices 4 run resumes a copy of the same
              directory; both tables equal phase 14's one-process table.
              (f) `--engine dense --devices 4`: cells byte-identical to
-             phase 6's and the same nmiss per level, the gather's launches
+             phase 6's and the same nmiss per level, the kernels' launches
              counted. (g) `--engine hybrid --hybrid-cutover 16`, on one
              device and with --devices 4: 69,763,700 / TIE / 25, the BFS
              region's levels 17-25 identical to phase 9's, the answers of
              20,000 sampled reachable states of levels 0-16 equal phase
-             9's, the gather's launches counted; then hybrid sym=1 at 5x4
+             9's, the kernels' launches counted; then hybrid sym=1 at 5x4
              against the classic engine. (f) and (g)'s one-device hybrid
-             each run twice more: once with every window gather of the
-             path held against the plain version on its own inputs (`out`
-             bit-identical, `nmiss` equal, as many launches as the counted
-             run, the plain nmiss summing to the run's), and once with
+             each run twice more: once with every level kernel launch of the
+             path held against its plain version on its own inputs
+             (in-range lanes bit-identical, `nmiss` and the reach count
+             equal, as many launches of each kernel as the counted run,
+             the plain nmiss summing to the run's), and once with
              GAMESMAN_DENSE_GATHER=plain; both runs' dense cells equal the
              counted run's byte for byte. Each run's seconds and peak
              memory beside the dense and classic numbers of the call.
@@ -154,7 +155,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              with --jsonl --trace-events --metrics-out --heartbeat-secs
              0.5 --status-port 0 and GAMESMAN_STATUS_ADDR_FILE, /status
              scraped while each runs: 5x5 (auto's dense pick, the window
-             gather launched) and (a)'s spec (classic): one record per
+             level kernels launched) and (a)'s spec (classic): one record per
              level and phase in the reference's names, positions/s from
              the records equal to the report's, the trace Chrome JSON of
              registered span names, gamesman_span_seconds in the metrics,
@@ -168,7 +169,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              1, "out of memory", an oom dump, the trip's RSS), one with
              the guard off (solves); (d) and (e) run together. (f)
              --profile-dir on the dense 4x4 solve: the Chrome trace names
-             the window-gather kernel. (g) `export-db --spec
+             the backward step's kernel. (g) `export-db --spec
              connect4_4x4.json` on the card writes the CPU export's files
              byte for byte; a card reader rebuilds the game from the
              embedded spec, and it and `query` answer as the solve.
@@ -178,8 +179,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              gamesmanmpi_tpu_torch.resilience.campaign`, `... registry`),
              raw checkpoint files: (a) `--engine dense` killed by
              GAMESMAN_FAULTS=ckpt.save_level:kill:5 after its 5th sealed
-             level; attempt 2 resumes 5 levels, launches the gather on the
-             rest (its `done` record's `gather_launches`), and every dense
+             level; attempt 2 resumes 5 levels, launches the level kernels
+             on the rest (its `done` record's `kernel_launches`), and every dense
              level equals phase 6's cells; the ledger reads killed, then
              complete. (b) `--devices 2` (GAMESMAN_FAKE_DEVICES=2) with
              `--chaos sharded.backward:oom:2`: a campaign_reshard record
@@ -220,14 +221,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              children sharing a GAMESMAN_DENSE_COUNTS_FILE in the phase's
              temp dir: the first sweeps, the second's --jsonl `done`
              record reads `reach_counts_source: file`; both 69,763,700 /
-             TIE / 25, their gather launches counted. (e) One `--engine
+             TIE / 25, their level kernels' launches counted. (e) One `--engine
              hybrid --hybrid-cutover 16 --jsonl` child: `hybrid_sweep`,
              `hybrid_bfs` and `done` records with the reference's keys.
              (f) `python -m gamesmanmpi_tpu_torch.db.check` on phase 12's
              v1 and v2 DBs exits 0, and 1 on a copy of v1 with one byte
              flipped, as tools/check_db.py does.
+19. dense level kernels — (a) every launch of both level kernels
+             (dense_step, reach_step) held against its plain version on
+             the same inputs (in-range lanes bit-identical, nmiss and the
+             reach count equal) in dense solves of 4x4 (block 2^14: several
+             blocks per level, ragged pad lanes; one device, 2 and 3
+             shards) and 5x4 (block 2^18), the reach counts Tromp's, the
+             shards' cells and nmiss the one-device run's; and both
+             kernels in the 64-bit words of 6x5 and 6x6+ on every rank
+             block of every 4x4 level. (b) At 5x5 the widest backward
+             block and the widest reach block: kernel and plain version
+             in turns, beside the bound (the larger of the bytes over the
+             memory rate and the integer operations of
+             ops/dense_level.step_work over the INT32 issue rate, SMs x 64
+             x `nvidia-smi` clocks.max.sm). (c) The CLI's 5x5 dense solve
+             on the kernels against the solve on the plain steps
+             (GAMESMAN_DENSE_GATHER=plain, the reach sweep on its plain
+             version), in turns, the reach sweep run each time: backward
+             and reach seconds and peak memory, every level of every run
+             byte-identical to phase 6's, 69,763,700 / TIE / 25.
 
-Then the script's seconds, the kernels line, the `nvidia-smi`
+Then the script's seconds, the kernels line (four rows: the window
+gather, the doubling, and the two level kernels with their launches per
+dense path), the `nvidia-smi`
 name/power-limit line, and last
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or of the JAX
 package, and exits non-zero without printing a result when there is no
@@ -487,8 +509,9 @@ def dense_5x5_phase():
     if got != (69763700, 3, 25):
         raise AssertionError(f"5x5 (positions, value, rem) {got} != "
                              "(69763700, TIE=3, 25)")
-    if launches["monotone_window_gather"] <= 0:
-        raise AssertionError(f"5x5 solve launched no kernel: {launches}")
+    if min(step_launches(launches).values()) <= 0:
+        raise AssertionError(f"5x5 solve launched no level kernel: "
+                             f"{launches}")
     s = result.stats
     emit("dense 5x5", report=report, positions=got[0], value="TIE",
          remoteness=got[2], secs_backward=s["secs_backward"],
@@ -827,10 +850,10 @@ def checkpoint_dense_phase(dense_result, tmp, spec=C55,
     kernels.reset_launches()
     s0, full_disk = uninterrupted(["solve", spec, "--engine", "dense",
                                    *extra], tmp / "dense_full", answer)
-    full_launches = kernels.LAUNCHES["monotone_window_gather"]
-    if (full_launches > 0) != on_card:
+    full_launches = step_launches(kernels.LAUNCHES)
+    if (full_launches["dense_step"] > 0) != on_card:
         raise AssertionError(f"checkpointed dense {spec}: {full_launches} "
-                             "gather launches")
+                             "level kernel launches")
 
     d = tmp / "dense"
     argv = ["solve", spec, "--engine", "dense", "--checkpoint-dir", str(d),
@@ -864,16 +887,19 @@ def checkpoint_dense_phase(dense_result, tmp, spec=C55,
     s = rec["stats"]
     if report_answer(lines) != answer:
         raise AssertionError(f"resumed dense {spec}: {lines}")
-    # Levels K..25 were loaded; K-1..0 recomputed, each through the gather.
+    # Levels K..25 were loaded; K-1..0 recomputed, each through the
+    # backward step's kernel.
     K = nlev - s["levels_resumed"]
     if s["levels_resumed"] != len(sealed) or K <= 0:
         raise AssertionError(f"levels_resumed {s['levels_resumed']} for "
                              f"sealed {sorted(sealed)}")
-    launches = rec["launches"]["monotone_window_gather"]
+    launches = step_launches(rec["launches"])
     nmiss = {int(L): v for L, v in s["gather_nmiss_per_level"].items()}
-    if (launches <= 0) == on_card or sorted(nmiss) != list(range(K)):
-        raise AssertionError(f"gather launches {launches}, nmiss counted on "
-                             f"levels {sorted(nmiss)}, recomputed 0..{K - 1}")
+    if (launches["dense_step"] <= 0) == on_card \
+            or sorted(nmiss) != list(range(K)):
+        raise AssertionError(f"level kernel launches {launches}, nmiss "
+                             f"counted on levels {sorted(nmiss)}, "
+                             f"recomputed 0..{K - 1}")
     for L, cells in sorted(dense_result.cells.items()):
         (got,) = read_npz_members(d / f"dense_{L:04d}.npz", ("cells",))
         if got.dtype != np.uint8 or got.tobytes() != cells.tobytes():
@@ -891,10 +917,10 @@ def checkpoint_dense_phase(dense_result, tmp, spec=C55,
                       ckpt_bytes_stored=s["ckpt_bytes_stored"],
                       ckpt_save_secs=s["ckpt_save_secs"],
                       io_wait_secs=s["io_wait_secs"],
-                      gather_launches=launches,
+                      launches=launches,
                       gather_nmiss=s["gather_nmiss"]),
          uninterrupted=dict(seal_fields(s0, full_disk),
-                            gather_launches=full_launches,
+                            launches=full_launches,
                             gather_nmiss=s0["gather_nmiss"]),
          no_checkpoint=dict(
              secs_backward=dense_result.stats["secs_backward"],
@@ -1770,50 +1796,87 @@ def ckpt_fields(s):
                     "edges_geometry_fallback_levels"])
 
 
+#: The level kernels (ops/dense_level.py) and what each replaces.
+STEP_KERNELS = {"dense_step": "gamesmanmpi_tpu/solve/dense.py:577",
+                "reach_step": "gamesmanmpi_tpu/solve/dense.py:759"}
+
+
+def in_range(geom, rank0, width, device):
+    """[width] bool: the lanes of [rank0, rank0+width) below the class
+    size (pad lanes beyond it carry no position)."""
+    return (rank0 + torch.arange(width, device=device)) < geom.size
+
+
+def same_step(name, geom, rank0, width, out, ref, extra, extra_ref):
+    """A level kernel's launch against its plain version on the same
+    inputs: in-range lanes bit-identical and nmiss (or the reach count)
+    equal, else AssertionError."""
+    ok = in_range(geom, rank0, width, out.device)
+    if not torch.equal(signed_view(out[:, ok]), signed_view(ref[:, ok])) \
+            or (extra is None) != (extra_ref is None) \
+            or (extra is not None and int(extra) != int(extra_ref)):
+        raise AssertionError(
+            f"{name} differs from its plain version at level {geom.level}, "
+            f"ranks [{rank0}, {rank0 + width}) x {out.shape[0]} rows: "
+            f"{None if extra is None else int(extra)} vs "
+            f"{None if extra_ref is None else int(extra_ref)}")
+
+
 @contextlib.contextmanager
-def checked_gather(tally):
-    """Route the dense engine's window gathers (the meshed dense engine's
-    and the hybrid's dense region go through solve/dense.py) through a
-    wrapper that also runs the plain version on the same inputs: `out`
-    bit-identical and `nmiss` equal on every launch, else AssertionError.
-    `tally` collects the launches checked, the plain version's summed
-    nmiss and the distinct (n, m) shapes."""
-    from gamesmanmpi_tpu_torch.ops.window_gather import (
-        monotone_window_gather_ref,
-    )
-    from gamesmanmpi_tpu_torch.solve import dense
+def checked_step(tally):
+    """Route the dense engine's level steps (the meshed dense engine's and
+    the hybrid's dense region go through solve/dense.py) through wrappers
+    that also run the plain version on the same inputs: in-range lanes
+    bit-identical, nmiss and the reach count equal on every launch, else
+    AssertionError. `tally` collects each kernel's launches checked, the
+    plain version's summed nmiss and reach count, and the distinct
+    (level, rows, width) shapes."""
+    from gamesmanmpi_tpu_torch.ops import dense_level
 
-    kernel = dense.monotone_window_gather
+    kernel = {"dense_step": dense_level.dense_step,
+              "reach_step": dense_level.reach_step}
 
-    def both(table, idx, block, window):
-        out, nm = kernel(table, idx, block, window)
-        ref, nm_ref = monotone_window_gather_ref(table, idx, block, window)
-        if not torch.equal(out, ref) or int(nm) != int(nm_ref):
-            raise AssertionError(
-                f"window gather on the path differs from its plain version "
-                f"at n={idx.shape[0]} m={table.shape[0]}: nmiss {int(nm)} "
-                f"vs {int(nm_ref)}")
-        tally["launches_checked"] += 1
-        tally["plain_nmiss"] += int(nm_ref)
-        tally["shapes"].add((int(idx.shape[0]), int(table.shape[0])))
-        return out, nm
+    def wrap(name):
+        def both(geom, rank0, width, src, consts, binom):
+            out, extra = kernel[name](geom, rank0, width, src, consts, binom)
+            if name == "dense_step":
+                ref, extra_ref = dense_level.dense_step_ref(
+                    geom, rank0, width, src, consts, binom, "window")
+            else:
+                ref, extra_ref = dense_level.reach_step_ref(
+                    geom, rank0, width, src, consts, binom)
+            same_step(name, geom, rank0, width, out, ref, extra, extra_ref)
+            tally["launches_checked"][name] += 1
+            tally["plain_" + ("nmiss" if name == "dense_step"
+                              else "reach")] += int(extra_ref or 0)
+            tally["shapes"].add((name, geom.level, out.shape[0], width))
+            return out, extra
+        return both
 
-    dense.monotone_window_gather = both
+    dense_level.dense_step = wrap("dense_step")
+    dense_level.reach_step = wrap("reach_step")
     try:
         yield
     finally:
-        dense.monotone_window_gather = kernel
+        dense_level.dense_step = kernel["dense_step"]
+        dense_level.reach_step = kernel["reach_step"]
 
 
-def gather_cross_checks(argv, what, kernel_cells, kernel_nmiss, launches,
-                        cells_of):
-    """The path of `argv` again twice: once with every window gather held
-    against its plain version on its own inputs (checked_gather), and once
+def new_tally():
+    return {"launches_checked": {k: 0 for k in STEP_KERNELS},
+            "plain_nmiss": 0, "plain_reach": 0, "shapes": set()}
+
+
+def step_cross_checks(argv, what, kernel_cells, kernel_nmiss, launches,
+                      cells_of):
+    """The path of `argv` again twice: once with every level kernel held
+    against its plain version on its own inputs (checked_step), and once
     with GAMESMAN_DENSE_GATHER=plain; both runs' dense cells must equal
     `kernel_cells` (the counted kernel run's) byte for byte, the checked
-    run must check `launches` launches (None on the CPU, where the path
-    launches no kernel), and the plain version's nmiss must sum to
-    `kernel_nmiss`. -> a summary for the phase line."""
+    run must check as many launches of each kernel as `launches` (the
+    counted run's; None on the CPU, where the path launches no kernel),
+    and the plain version's nmiss must sum to `kernel_nmiss`. -> a
+    summary for the phase line."""
     import numpy as np
 
     def same_cells(r, label):
@@ -1825,17 +1888,19 @@ def gather_cross_checks(argv, what, kernel_cells, kernel_nmiss, launches,
                 raise AssertionError(f"{what} {label}: level {L} cells "
                                      "differ from the kernel run's")
 
-    tally = {"launches_checked": 0, "plain_nmiss": 0, "shapes": set()}
+    tally = new_tally()
     t0 = time.perf_counter()
-    with env_set(GAMESMAN_FAKE_DEVICES=4), checked_gather(tally):
+    with env_set(GAMESMAN_FAKE_DEVICES=4), checked_step(tally):
         r, _ = cli_solve(argv)
     checked_secs = time.perf_counter() - t0
-    if launches is not None and tally["launches_checked"] != launches \
+    counted = None if launches is None else {k: launches[k]
+                                             for k in STEP_KERNELS}
+    if counted is not None and tally["launches_checked"] != counted \
             or tally["plain_nmiss"] != kernel_nmiss \
             or r.stats["gather_nmiss"] != kernel_nmiss:
         raise AssertionError(f"{what}: checked run {tally}, nmiss "
                              f"{r.stats['gather_nmiss']} vs {kernel_nmiss}, "
-                             f"{launches} launches counted")
+                             f"{counted} launches counted")
     same_cells(r, "checked")
     del r
     t0 = time.perf_counter()
@@ -1848,8 +1913,14 @@ def gather_cross_checks(argv, what, kernel_cells, kernel_nmiss, launches,
     del r
     return dict(launches_checked=tally["launches_checked"],
                 plain_nmiss=tally["plain_nmiss"],
+                plain_reach=tally["plain_reach"],
                 shapes_checked=len(tally["shapes"]),
                 checked_secs=checked_secs, plain_run_secs=plain_secs)
+
+
+def step_launches(launches):
+    """The level kernels' entries of a kernels.LAUNCHES snapshot."""
+    return {k: launches[k] for k in STEP_KERNELS}
 
 
 def hybrid_check(h, result, n, seed, what):
@@ -1890,7 +1961,7 @@ def hybrid_fields(h, launches):
                 frontier_at_boundary=s["frontier_at_boundary"],
                 gather_nmiss=s["gather_nmiss"],
                 peak_mem_bytes=s["peak_mem_bytes"],
-                launches=launches["monotone_window_gather"])
+                launches=step_launches(launches))
 
 
 def reshard_hybrid_phase(result, dense_result, tmp, v1, spec=C55,
@@ -1902,7 +1973,7 @@ def reshard_hybrid_phase(result, dense_result, tmp, v1, spec=C55,
     `dense_result` phase 6's dense one, `v1` phase 12's streamed DB and
     `world_table` phase 14's one-process `--devices 4` table of `small`;
     `extra` (`--device cpu`) and smaller boards rehearse the phase on the
-    CPU. -> the gather's launches per path."""
+    CPU. -> the level kernels' launches per path."""
     import numpy as np
 
     from gamesmanmpi_tpu_torch import kernels
@@ -2054,19 +2125,18 @@ def reshard_hybrid_phase(result, dense_result, tmp, v1, spec=C55,
     if md.stats["gather_nmiss_per_level"] != dense_result.stats[
             "gather_nmiss_per_level"]:
         raise AssertionError("meshed dense nmiss differs per level")
-    if "cpu" not in extra and launches_md["monotone_window_gather"] <= 0:
-        raise AssertionError(f"meshed dense launched no gather: "
+    if "cpu" not in extra and launches_md["dense_step"] <= 0:
+        raise AssertionError(f"meshed dense launched no dense_step: "
                              f"{launches_md}")
     meshed = dict(secs_backward=md.stats["secs_backward"],
                   positions_per_sec=md.stats["positions_per_sec"],
                   gather_nmiss=md.stats["gather_nmiss"],
                   peak_mem_bytes=md.stats.get("peak_mem_bytes"),
-                  launches=launches_md["monotone_window_gather"])
-    meshed["cross_checks"] = gather_cross_checks(
+                  launches=step_launches(launches_md))
+    meshed["cross_checks"] = step_cross_checks(
         ["solve", spec, "--engine", "dense", "--devices", "4", *extra],
         "meshed dense", md.cells, md.stats["gather_nmiss"],
-        None if "cpu" in extra else launches_md["monotone_window_gather"],
-        lambda r: r.cells)
+        None if "cpu" in extra else launches_md, lambda r: r.cells)
     del md
 
     # (g) The hybrid at K, one device then 4, then sym=1 at `small`.
@@ -2081,18 +2151,18 @@ def reshard_hybrid_phase(result, dense_result, tmp, v1, spec=C55,
         launches = dict(kernels.LAUNCHES)
         if report_answer(report) != answer:
             raise AssertionError(f"hybrid {label} {spec}: {report}")
-        if "cpu" not in extra and launches["monotone_window_gather"] <= 0:
-            raise AssertionError(f"hybrid {label} launched no gather")
+        if "cpu" not in extra and min(step_launches(launches).values()) <= 0:
+            raise AssertionError(f"hybrid {label} launched no level kernel: "
+                                 f"{launches}")
         checked = hybrid_check(h, result, samples, 15, f"hybrid {label}")
         hybrid[label] = dict(hybrid_fields(h, launches), sampled=checked)
-        launches_hy[label] = launches["monotone_window_gather"]
+        launches_hy[label] = step_launches(launches)
         if label == "devices1":
-            hybrid[label]["cross_checks"] = gather_cross_checks(
+            hybrid[label]["cross_checks"] = step_cross_checks(
                 ["solve", spec, "--engine", "hybrid", "--hybrid-cutover",
                  str(cutover), *more, *extra], f"hybrid {label}", h.cells,
                 h.stats["gather_nmiss"],
-                None if "cpu" in extra else launches["monotone_window_gather"],
-                lambda r: r.cells)
+                None if "cpu" in extra else launches, lambda r: r.cells)
         del h
     sym = small + ",sym=1"
     ref_sym, _ = cli_solve(["solve", sym, "--engine", "classic", *extra])
@@ -2118,12 +2188,12 @@ def reshard_hybrid_phase(result, dense_result, tmp, v1, spec=C55,
             raise AssertionError(f"hybrid {sym}: {int(s):#x}")
     hybrid["sym_" + small] = dict(hybrid_fields(h, launches),
                                   sampled=len(states))
-    launches_hy["sym"] = launches["monotone_window_gather"]
+    launches_hy["sym"] = step_launches(launches)
     emit("sharded checkpoint, meshed dense, hybrid", spec=spec,
          same_call=base, uninterrupted=uninterrupted_, resumed=resumed_,
          reshard=reshard, export=export, world=world, meshed_dense=meshed,
          hybrid=hybrid, secs=time.perf_counter() - t0)
-    return {"meshed_dense": launches_md["monotone_window_gather"],
+    return {"meshed_dense": step_launches(launches_md),
             "hybrid": launches_hy["devices1"],
             "hybrid_devices4": launches_hy["devices4"],
             "hybrid_sym": launches_hy["sym"]}
@@ -2405,23 +2475,23 @@ def watchdog_and_memguard(tmp, stalled=("connect4:w=5,h=4", 18), spec=C55,
 
 def profile_dense(tmp, extra=()):
     """(f) --profile-dir on the dense 4x4 solve: the Chrome trace names
-    the window-gather kernel."""
+    the backward step's kernel."""
     from gamesmanmpi_tpu_torch import kernels
 
     d = tmp / "profile"
     kernels.reset_launches()
     r, report = cli_solve(["solve", "connect4:w=4,h=4", "--engine", "dense",
                            "--profile-dir", str(d), *extra])
-    launches = dict(kernels.LAUNCHES)["monotone_window_gather"]
+    launches = dict(kernels.LAUNCHES)["dense_step"]
     if report_answer(report) != (161029, "TIE", 16) or (
             launches <= 0 and not extra):
         raise AssertionError(f"profiled 4x4: {report}, {launches} launches")
     (trace,) = d.iterdir()
     events = json.loads(trace.read_text())["traceEvents"]
-    gathers = [e for e in events if "window_gather_kernel" in e.get(
+    gathers = [e for e in events if "dense_step_kernel" in e.get(
         "name", "") and e.get("cat") == "kernel"]
     if not gathers and not extra:
-        raise AssertionError("profiler trace names no window_gather_kernel")
+        raise AssertionError("profiler trace names no dense_step_kernel")
     return dict(trace_bytes=trace.stat().st_size, events=len(events),
                 gather_kernel_events=len(gathers), launches=launches,
                 kernel_name=gathers[0]["name"] if gathers else None,
@@ -2505,8 +2575,8 @@ def spec_instrumentation_phase(classic_result, dense_result, tmp, spec=C55,
                                "dense")
     lines, rec, records, trace, metrics, snaps, secs = dense
     if rec["stats"]["engine"] != "dense" or (
-            rec["launches"]["monotone_window_gather"] <= 0 and not extra):
-        raise AssertionError(f"instrumented 5x5 did not run the gather: "
+            rec["launches"]["dense_step"] <= 0 and not extra):
+        raise AssertionError(f"instrumented 5x5 did not run the kernels: "
                              f"{rec['launches']}")
     got_d = check_instrumented(
         "dense", lines[:-1], records, trace, metrics, snaps,
@@ -2672,7 +2742,8 @@ def campaign_registry_phase(result, dense_result, tmp, v1, spec=C55,
     children. `result` is phase 9's classic solve of `spec`,
     `dense_result` phase 6's dense one and `v1` phase 12's streamed DB;
     `extra` (`--device cpu`) and a smaller `spec` rehearse the phase on
-    the CPU. -> the gather's launches in the dense campaign."""
+    the CPU. -> the level kernels' launches in the dense campaign's
+    resumed attempt."""
     import numpy as np
 
     from gamesmanmpi_tpu_torch.db import DbReader
@@ -2701,9 +2772,9 @@ def campaign_registry_phase(result, dense_result, tmp, v1, spec=C55,
         raise AssertionError(f"dense campaign: rc {run.proc.returncode}, "
                              f"causes {attempt_causes(D)}\n{run.err[-3000:]}")
     done = [r for r in jsonl(J) if r["phase"] == "done"][-1]
-    launches = done["gather_launches"]
+    launches = step_launches(done["kernel_launches"])
     if (attempt_report(D, 2) != answer or done["levels_resumed"] != kill
-            or (launches > 0) != on_card):
+            or (launches["dense_step"] > 0) != on_card):
         raise AssertionError(f"dense campaign: {attempt_report(D, 2)}, "
                              f"resumed {done['levels_resumed']}, "
                              f"{launches} launches")
@@ -2713,7 +2784,7 @@ def campaign_registry_phase(result, dense_result, tmp, v1, spec=C55,
             raise AssertionError(f"dense campaign: level {L} differs from "
                                  "phase 6's cells")
     fields["a_dense"] = dict(
-        run.fields(), causes=attempt_causes(D), gather_launches=launches,
+        run.fields(), causes=attempt_causes(D), launches=launches,
         levels_resumed=done["levels_resumed"],
         resumed_secs_backward=done["secs_backward"],
         attempt_secs=[r["wall_secs"] for r in ledger_of(D)
@@ -3004,10 +3075,10 @@ def streaming_runs(result, tmp, spec, answer, extra, window_block,
 
 def counts_file_children(tmp, spec, answer, extra):
     """(d): two dense children sharing one counts file -> (fields,
-    their gather launches)."""
+    their level kernels' launches)."""
     path = tmp / "dense_counts.json"
     env = {"GAMESMAN_DENSE_COUNTS_FILE": str(path)}
-    out, launches = [], 0
+    out, launches = [], dict.fromkeys(STEP_KERNELS, 0)
     for i, want in enumerate(("sweep", "file")):
         log = tmp / f"counts_{i}.jsonl"
         lines, rec, secs = run_child(["solve", spec, "--engine", "dense",
@@ -3017,11 +3088,12 @@ def counts_file_children(tmp, spec, answer, extra):
                 or done["reach_counts_source"] != want:
             raise AssertionError(f"counts child {i}: {lines[-3:]} "
                                  f"{done.get('reach_counts_source')}")
-        launches += rec["launches"]["monotone_window_gather"]
+        for k in STEP_KERNELS:
+            launches[k] += rec["launches"][k]
         out.append(dict(reach_counts_source=done["reach_counts_source"],
                         secs_count_reachable=done["secs_count_reachable"],
                         secs_backward=done["secs_backward"],
-                        gather_launches=done["gather_launches"],
+                        launches=step_launches(done["kernel_launches"]),
                         wall_secs=secs))
     if not path.exists():
         raise AssertionError("the first child wrote no counts file")
@@ -3030,7 +3102,7 @@ def counts_file_children(tmp, spec, answer, extra):
 
 def hybrid_records_child(tmp, spec, answer, extra, cutover):
     """(e): the hybrid's records from a child's --jsonl -> (fields, its
-    gather launches)."""
+    level kernels' launches)."""
     log = tmp / "hybrid.jsonl"
     lines, rec, secs = run_child(["solve", spec, "--engine", "hybrid",
                                   "--hybrid-cutover", str(cutover),
@@ -3051,7 +3123,7 @@ def hybrid_records_child(tmp, spec, answer, extra, cutover):
                                                "positions", "secs",
                                                "secs_total")}
                          for r in recs}, wall_secs=secs), \
-        rec["launches"]["monotone_window_gather"]
+        step_launches(rec["launches"])
 
 
 def check_twin(tmp, v1, v2, extra):
@@ -3092,7 +3164,7 @@ def capacity_pipeline_phase(result, tmp, v1, v2, spec=C55,
     9's classic solve of `spec`, `v1`/`v2` phase 12's DBs, `resident`
     phase 14's one-process sharded fields; `extra` (`--device cpu`), a
     smaller board, block and cache rehearse the phase on the CPU. ->
-    the gather launches of its dense children."""
+    the level kernels' launches of its dense children."""
     t0 = time.perf_counter()
     extra = list(extra)
     pipe = pipeline_runs(result, tmp, spec, answer, extra)
@@ -3110,6 +3182,247 @@ def capacity_pipeline_phase(result, tmp, v1, v2, spec=C55,
     return {"counts_file": count_launches, "hybrid_records": hybrid_launches}
 
 
+@contextlib.contextmanager
+def plain_reach_steps():
+    """The reach sweep on the reach step's plain version (the backward's
+    plain route is GAMESMAN_DENSE_GATHER=plain): a whole solve on the
+    plain steps, for phase 19 (c)'s comparison."""
+    from gamesmanmpi_tpu_torch.ops import dense_level
+
+    kernel = dense_level.reach_step
+    dense_level.reach_step = dense_level.reach_step_ref
+    try:
+        yield
+    finally:
+        dense_level.reach_step = kernel
+
+
+def checked_solves(dev):
+    """(a) Both kernels held against their plain versions on every launch
+    of dense solves of 4x4 (one device, 2 and 3 shards) and 5x4, in
+    blocks small enough for several blocks per level and ragged pad
+    lanes; the reach counts are Tromp's; the shards' cells and nmiss are
+    the one-device run's. -> {case: fields}, the 4x4 one-device solve."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch.games import get_game
+    from gamesmanmpi_tpu_torch.solve import dense
+
+    out, base = {}, {}
+    for spec, block, want, shards in (
+            ("connect4:w=4,h=4", 1 << 14, 161029, (1, 2, 3)),
+            ("connect4:w=5,h=4", 1 << 18, 3945711, (1,))):
+        for devices in shards:
+            tally = new_tally()
+            dense._REACH_COUNTS.clear()  # so the reach sweep runs
+            with env_set(GAMESMAN_FAKE_DEVICES=4), checked_step(tally):
+                r = dense.DenseSolver(get_game(spec), device=dev,
+                                      block_elems=block,
+                                      devices=devices).solve()
+            launches = step_launches(r.stats["kernel_launches"])
+            if r.num_positions != want \
+                    or tally["plain_reach"] != want - 1 \
+                    or tally["plain_nmiss"] != r.stats["gather_nmiss"] \
+                    or (dev.type == "cuda"
+                        and tally["launches_checked"] != launches):
+                raise AssertionError(f"checked {spec} devices={devices}: "
+                                     f"{r.num_positions}, {tally}, "
+                                     f"{launches}")
+            b = base.setdefault(spec, r)
+            if b.stats["gather_nmiss_per_level"] != r.stats[
+                    "gather_nmiss_per_level"] or not all(
+                    np.array_equal(b.cells[L], c) for L, c in
+                    r.cells.items()):
+                raise AssertionError(f"{spec} devices={devices} differs "
+                                     "from the one-device run")
+            out[f"{spec} devices={devices}"] = dict(
+                launches=launches, shapes=len(tally["shapes"]),
+                gather_nmiss=r.stats["gather_nmiss"],
+                reach_count=tally["plain_reach"] + 1)
+    dense._REACH_COUNTS.clear()
+    return out, base["connect4:w=4,h=4"]
+
+
+def wide_word_steps(dev, solved):
+    """(a) The 64-bit instantiations (the words of 6x5 and of 6x6 and up)
+    on every level of 4x4: each rank block of each level through both
+    kernels and their plain versions, in-range lanes bit-identical and
+    nmiss / the reach count equal (the reach over a seeded parent reach).
+    -> launches checked per word set."""
+    import dataclasses
+
+    from gamesmanmpi_tpu_torch.ops import dense_level
+    from gamesmanmpi_tpu_torch.solve import dense
+
+    s = dense.DenseSolver(solved.game, device=dev, block_elems=1 << 14)
+    t = s.tables
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    out = {}
+    for words in (dense_level.Words(64, 32, 32), dense_level.Words(64, 32, 64),
+                  dense_level.Words(64, 64, 64)):
+        n = 0
+        for L in range(t.ncells + 1):
+            geom = dataclasses.replace(dense_level.level_geom(t, L),
+                                       words=words)
+            cblock, nblk = s._cblock(L)
+            for for_reach in ((False, True) if L else (False,)):
+                consts = dict(s._level_tensors(L, for_reach),
+                              kernel=dense_level.kernel_consts(
+                                  t, L, for_reach, dev, words))
+                if for_reach:
+                    m = len(t.profiles[L - 1]) * t.class_size[L - 1]
+                    src = torch.randint(0, 2, (m,), generator=gen).to(
+                        torch.uint8).to(dev)
+                    kern, ref = dense_level.reach_step, \
+                        dense_level.reach_step_ref
+                else:
+                    src = (torch.from_numpy(solved.cells[L + 1]).reshape(-1)
+                           if L < t.ncells
+                           else torch.zeros(1, dtype=torch.uint8)).to(dev)
+                    kern = dense_level.dense_step
+
+                    def ref(*a):
+                        return dense_level.dense_step_ref(*a, "window")
+                for b in range(nblk):
+                    args = (geom, b * cblock, cblock, src, consts, s._binom)
+                    got, extra = kern(*args)
+                    want, extra_ref = ref(*args)
+                    same_step("reach_step" if for_reach else "dense_step",
+                              geom, b * cblock, cblock, got, want, extra,
+                              extra_ref)
+                    n += 1
+        out[f"bits{words.bits}_rank{words.rank}_flat{words.flat}"] = n
+    return out
+
+
+def timed_block(dev, rate, int_rate, dense_result, for_reach):
+    """(b) At 5x5, the widest block of the backward (or the reach sweep):
+    kernel and plain version timed in turns, the kernel's bound the
+    larger of its bytes over the memory rate and its integer operations
+    (ops/dense_level.step_work) over the INT32 issue rate."""
+    from gamesmanmpi_tpu_torch.bench.kernel_cases import time_turns
+    from gamesmanmpi_tpu_torch.games import get_game
+    from gamesmanmpi_tpu_torch.ops import dense_level
+    from gamesmanmpi_tpu_torch.solve import dense
+
+    s = dense.DenseSolver(get_game(C55), device=dev)
+    t = s.tables
+    levels = range(1, t.ncells + 1) if for_reach else range(t.ncells)
+    L = max(levels, key=lambda k: len(t.profiles[k]) * s._cblock(k)[0])
+    width = s._cblock(L)[0]
+    geom = dense_level.level_geom(t, L)
+    consts = s._level_tensors(L, for_reach)
+    if for_reach:
+        _, src = s._sweep_levels(L - 1)  # the parent level's real reach
+        kern, name = dense_level.reach_step, "reach_step"
+
+        def plain():
+            return dense_level.reach_step_ref(geom, 0, width, src, consts,
+                                              s._binom)
+        lanes, followed = dense_level.reach_followed(geom, 0, width, consts,
+                                                     s._binom, src)
+    else:
+        src = torch.from_numpy(dense_result.cells[L + 1]).reshape(-1).to(dev)
+        kern, name = dense_level.dense_step, "dense_step"
+
+        def plain():
+            return dense_level.dense_step_ref(geom, 0, width, src, consts,
+                                              s._binom, "window")
+        lanes, followed = dense_level.dense_followed(geom, 0, width, consts)
+
+    def kernel():
+        return kern(geom, 0, width, src, consts, s._binom)
+
+    got, extra = kernel()
+    want, extra_ref = plain()
+    same_step(name, geom, 0, width, got, want, extra, extra_ref)
+    del got, want
+    times = time_turns({"kernel": kernel, "plain": plain}, rounds=3,
+                       iters=2, warmup=1)
+    P = consts["filled"].shape[0]
+    nbytes, ops = dense_level.step_work(geom, P, width, src.shape[0], lanes,
+                                        followed, for_reach)
+    by_bytes, by_ops = nbytes / rate * 1e3, ops / int_rate * 1e3
+    k = times["kernel"]
+    bound = max(by_bytes, by_ops)
+    return dict(level=L, rows=P, width=width, lanes=P * width,
+                in_range_lanes=lanes, followed=followed, bound_bytes=nbytes,
+                bound_ops=ops, bytes_ms=by_bytes, ops_ms=by_ops,
+                ms=k["median_ms"], ms_min=k["min_ms"], ms_max=k["max_ms"],
+                samples=k["samples"], plain_ms=times["plain"]["median_ms"],
+                library_ms=None, bound_ms=bound,
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_share=bound / k["median_ms"], max_abs_err=0,
+                extra=None if extra is None else int(extra))
+
+
+def cli_in_turns(dense_result, spec=C55, answer=(69763700, "TIE", 25),
+                 extra=()):
+    """(c) The CLI's 5x5 dense solve on the kernels against the solve on
+    the plain steps (GAMESMAN_DENSE_GATHER=plain, the reach sweep on its
+    plain version), in turns kernel, plain, plain, kernel, each with the
+    reach sweep run (the in-process counts cleared): every level of every
+    run byte-identical to phase 6's cells, 69,763,700 / TIE / 25."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch import kernels
+    from gamesmanmpi_tpu_torch.solve import dense
+
+    runs = []
+    for mode in ("kernels", "plain", "plain", "kernels"):
+        dense._REACH_COUNTS.clear()
+        kernels.reset_launches()
+        env = {} if mode == "kernels" else {"GAMESMAN_DENSE_GATHER": "plain"}
+        with env_set(**env), (plain_reach_steps() if mode == "plain"
+                              else contextlib.nullcontext()):
+            r, report = cli_solve(["solve", spec, "--engine", "dense",
+                                   *extra])
+        launches = step_launches(kernels.LAUNCHES)
+        on_card = "cpu" not in extra
+        if report_answer(report) != answer \
+                or (mode == "kernels" and on_card
+                    and min(launches.values()) <= 0) \
+                or (mode == "plain" and max(launches.values()) != 0):
+            raise AssertionError(f"{spec} {mode}: {report}, {launches}")
+        if sorted(r.cells) != sorted(dense_result.cells) or not all(
+                np.array_equal(r.cells[L], c)
+                for L, c in dense_result.cells.items()):
+            raise AssertionError(f"{spec} {mode}: cells differ from "
+                                 "phase 6's")
+        s = r.stats
+        runs.append(dict(mode=mode, secs_backward=s["secs_backward"],
+                         secs_count_reachable=s["secs_count_reachable"],
+                         peak_mem_bytes=s.get("peak_mem_bytes"),
+                         launches=launches))
+        del r
+    dense._REACH_COUNTS.clear()
+    return runs
+
+
+def dense_level_phase(dev, rate, int_rate, dense_result, spec=C55,
+                      answer=(69763700, "TIE", 25), extra=()):
+    """Phase 19: the dense level kernels. `dense_result` is phase 6's
+    solve of `spec`; on the CPU (`extra` = `--device cpu`, a smaller
+    `spec`) the wrappers take their plain versions and (b) is left out.
+    -> the rows of (b)."""
+    t0 = time.perf_counter()
+    checked, solved = checked_solves(dev)
+    words = wide_word_steps(dev, solved)
+    emit("dense level kernels (a)", checked=checked, wide_words=words,
+         secs=time.perf_counter() - t0)
+    rows = {}
+    if dev.type == "cuda":
+        for name, reach in (("dense_step", False), ("reach_step", True)):
+            rows[name] = timed_block(dev, rate, int_rate, dense_result,
+                                     reach)
+            emit(f"dense level kernels (b) {name}", int32_ops_per_sec=int_rate,
+                 hbm_bytes_per_sec=rate, **rows[name])
+    runs = cli_in_turns(dense_result, spec, answer, extra)
+    emit("dense level kernels (c)", runs=runs, levels_identical=len(
+        dense_result.cells), secs=time.perf_counter() - t0)
+    return rows
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3123,6 +3436,7 @@ def main() -> int:
     os.environ["GAMESMAN_DENSE_COUNTS_FILE"] = "0"
     from gamesmanmpi_tpu_torch.bench.kernel_cases import (
         hbm_bytes_per_sec,
+        int32_ops_per_sec,
         nvidia_smi_line,
     )
     from gamesmanmpi_tpu_torch.kernels import build
@@ -3131,6 +3445,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     rate = hbm_bytes_per_sec(name)
+    int_rate = int32_ops_per_sec()
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=name, nvidia_smi=smi,
          device_count=torch.cuda.device_count())
@@ -3166,13 +3481,15 @@ def main() -> int:
         checkpoint_dense_phase(dense_result, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    steps = dense_level_phase(dev, rate, int_rate, dense_result)
 
     def row(name, source, replaces, launches, m, by_path=None):
         r = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
              "max_abs_err": m["max_abs_err"], "ms": m["ms"],
              "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-             "bound_by": "bytes", "library_ms": m["library_ms"],
+             "bound_by": m.get("bound_by", "bytes"),
+             "library_ms": m["library_ms"],
              "bound_share": m["bound_share"]}
         if by_path:
             r["launches_by_path"] = by_path
@@ -3182,26 +3499,32 @@ def main() -> int:
                 "bound_ms", "bound_share")} for s in m["shapes"]]
         return r
 
+    # Each level kernel's launches per dense path (the kernels line).
+    paths = dict(dense=step_launches(dense_launches), **path_launches,
+                 campaign_dense=campaign_launches, **capacity_launches)
+
     emit("total", secs=time.perf_counter() - t_script)
     print(json.dumps({"kernels": [
-        # Launches on the path that runs each kernel: the dense solve, the
-        # dense campaign's resumed attempt and the two counts-file dense
-        # children for the gather (times at its largest launch's shape,
-        # then every shape; per path: dense, meshed dense, hybrid,
-        # campaign, counts file, the hybrid records child), the
-        # microbench for the doubling.
+        # Launches on the path that runs each kernel: the microbench for
+        # the window gather (times at the dense level-18 shape, then every
+        # shape) and the doubling; for the level kernels the dense 5x5
+        # solve, the dense campaign's resumed attempt and the two
+        # counts-file dense children, with every dense path's count
+        # beside (times at the widest 5x5 block, phase 19 (b)).
         row("monotone_window_gather",
             "gamesmanmpi_tpu_torch/kernels/csrc/window_gather.cu",
             "gamesmanmpi_tpu/ops/pallas_gather.py:116",
-            dense_launches["monotone_window_gather"] + campaign_launches
-            + capacity_launches["counts_file"], k,
-            dict(dense=dense_launches["monotone_window_gather"],
-                 **path_launches, campaign_dense=campaign_launches,
-                 **capacity_launches)),
+            bench_launches["monotone_window_gather"], k),
         row("double_u32",
             "gamesmanmpi_tpu_torch/kernels/csrc/double_u32.cu",
             "tools/microbench2.py:210",
             bench_launches["double_u32"], d),
+        *(row(kname, "gamesmanmpi_tpu_torch/kernels/csrc/dense_level.cu",
+              STEP_KERNELS[kname],
+              sum(paths[p][kname] for p in ("dense", "campaign_dense",
+                                            "counts_file")),
+              steps[kname], {p: v[kname] for p, v in paths.items()})
+          for kname in STEP_KERNELS),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,8 @@ time the same inputs the same way:
   function must move: every input read once, every output written once.
 * :func:`nvidia_smi_line`, :func:`hbm_bytes_per_sec` — the card's name and
   power limit, and its published memory rate.
+* :func:`int32_ops_per_sec` — the card's peak INT32 issue rate, the
+  bound of the integer-bound level kernels.
 """
 
 from __future__ import annotations
@@ -58,6 +60,22 @@ def hbm_bytes_per_sec(name: str) -> float:
     if "NVL" in name:
         return 3.9e12
     return 3.35e12  # H100 SXM
+
+
+#: INT32 lanes per SM per clock on Hopper (four partitions of 16).
+INT32_LANES_PER_SM = 64
+
+
+def int32_ops_per_sec() -> float:
+    """Peak INT32 issue rate of card 0: its SMs x INT32_LANES_PER_SM x
+    its maximum SM clock as `nvidia-smi` reports it (clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * float(out[0]) * 1e6
 
 
 def gather_bound_bytes(n: int, m: int, idx_bytes: int,

@@ -11,7 +11,8 @@ from __future__ import annotations
 from typing import Dict
 
 #: kernel name -> launches since the last reset_launches().
-LAUNCHES: Dict[str, int] = {"monotone_window_gather": 0, "double_u32": 0}
+LAUNCHES: Dict[str, int] = {"monotone_window_gather": 0, "double_u32": 0,
+                            "dense_step": 0, "reach_step": 0}
 
 
 def reset_launches() -> None:

@@ -51,6 +51,11 @@ SOURCES: Dict[str, tuple] = {
     "double_u32": ("double_u32.cu", {
         "double_u32_launch": ([_P, _P, _LL, _I, _LL, _LL, _I, _P], _I),
     }),
+    # Both take the argument vector of ops/dense_level.launch_args.
+    "dense_level": ("dense_level.cu", {
+        "dense_step_launch": ([_P, _I, _P], _I),
+        "reach_step_launch": ([_P, _I, _P], _I),
+    }),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

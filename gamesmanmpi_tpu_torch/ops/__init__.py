@@ -1,1 +1,2 @@
-"""Tensor ops of the torch port: the negamax combine and the window gather."""
+"""Tensor ops of the torch port: the negamax combine, the window gather
+and the dense engine's level steps."""

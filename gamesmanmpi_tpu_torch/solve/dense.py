@@ -12,27 +12,37 @@ Positions are indexed perfectly instead of discovered:
   cells.
 - The solve is one backward sweep over levels. Per level: unrank ->
   win folds -> per-move child rank -> gather of the child's packed cell
-  -> negamax combine (ops/combine.py).
+  -> negamax combine (ops/combine.py's rules), one kernel launch per
+  rank block.
 - Reachable positions (Tromp's counts) come from a separate forward
   **reachability sweep** with "unmove" tables, cached per board per
   process and across processes in the counts file (below).
 
-The child-cell gather is the one hand-written kernel on this path
-(``gather_mode="window"``, the default): invalid rows and pad lanes get a
-monotone fill so the flat child index vector is non-decreasing, and
-ops/window_gather.monotone_window_gather serves it — the CUDA kernel on
-the card, its plain version on the CPU. The kernel is exact, so the
-reference's per-call fallback gather is gone. ``gather_mode="plain"`` is
-the clipped torch index, kept as the yardstick. ``GAMESMAN_DENSE_GATHER``
-picks it when the caller does not: unset or ``pallas`` is the window
-kernel, ``plain`` the plain gather; ``sorted`` is not ported.
+Each level step is one hand-written CUDA kernel on the card
+(ops/dense_level.py, kernels/csrc/dense_level.cu), one thread per lane:
+``dense_step`` unranks, folds, ranks every child, gathers its packed cell
+and combines, in the reference's narrowed words (uint32 at 5x5; 64-bit
+where a board needs them); ``reach_step`` does the reach sweep's OR over
+columns and counts. On the CPU each step is its plain version: eager
+int64 torch ops, the reference's fori_loop walks written out. With
+``gather_mode="window"`` (the default) invalid rows and pad lanes get a
+monotone fill so each move's flat child index vector is non-decreasing,
+and the backward step counts the window gather's misses over exactly the
+partition of ops/window_gather.monotone_window_gather (the standalone
+kernel of that gather stays the port's counterpart of the reference's
+Pallas kernel). ``sorted`` takes the same fill into a clamped torch index
+and ``plain`` the clamped unfilled index: both run the plain step on any
+device, explicitly chosen, and count no misses; the three give identical
+cells. ``GAMESMAN_DENSE_GATHER`` picks the mode when the caller does not:
+unset or ``pallas`` is window, ``plain`` and ``sorted`` themselves.
 
-All tensors are int64 (bitboards, ranks, flat indices) or uint8 (cells);
-see core/bitops.py. The reference's TPU-only machinery is not carried
-over: the one-hot binomial select tree (the card indexes the [ncells+1, K]
-table directly), the relay run-ahead drain, background compiles. Not
-ported: _rank_all_moves_fused, and the sorted gather mode (an XLA hint;
-ROADMAP keeps it until a card profile shows a sorted-index gather pays).
+The plain steps hold bitboards, ranks and flat indices in int64 and
+cells in uint8 (core/bitops.py); the kernels the reference's words. The
+reference's TPU-only machinery is not carried over: the one-hot binomial
+select tree (both routes index the [ncells+1, K] table directly), the
+one-walk child ranking ``_rank_all_moves_fused`` (a lowering choice with
+identical results; the kernel ranks each child by its own walk), the relay
+run-ahead drain, background compiles.
 
 **The counts file** (``GAMESMAN_DENSE_COUNTS_FILE``; default
 ``.dense_counts.json`` at the repository root, ``0`` turns it off), the
@@ -49,14 +59,15 @@ says where a solve's counts came from: ``sweep``, ``file`` or
 level step's [P, cblock] lanes are split over the N shards, each shard
 computing its slice on its device, and each level's cells are copied to
 every shard's device for the next level's gathers (the reference's
-``_replicate``). A slice is a whole number of window-gather kernel
-blocks, cut from the one-device layout: every kernel block stays inside
-one profile row and sees exactly the lanes it sees at ``devices=1``, so
-the cells and the summed ``nmiss`` equal the one-device run's. (The
-reference instead rounds cblock up to ``lcm(devices, PALLAS_BLOCK)`` and
-lets SPMD partition it; its Pallas gather falls back to the plain one
-there, unproven under auto-SPMD. Here each shard launches the kernel
-itself on its own slice, so there is nothing to fall back from.)
+``_replicate``). A slice is a whole number of the window gather's miss
+blocks (2,048 lanes, one CTA of the step kernel), cut from the
+one-device layout: every block stays inside one profile row and sees
+exactly the lanes it sees at ``devices=1``, so the cells and the summed
+``nmiss`` equal the one-device run's. (The reference instead rounds
+cblock up to ``lcm(devices, PALLAS_BLOCK)`` and lets SPMD partition it;
+its Pallas gather falls back to the plain one there, unproven under
+auto-SPMD. Here each shard launches the kernel itself on its own slice,
+so there is nothing to fall back from.)
 Single-controller, as in the reference: the mesh spans one process.
 
 Checkpoint/resume (``checkpointer=``), as in the reference: the directory
@@ -90,7 +101,6 @@ import numpy as np
 import torch
 
 from gamesmanmpi_tpu_torch import kernels
-from gamesmanmpi_tpu_torch.core.values import LOSE, TIE
 from gamesmanmpi_tpu_torch.games.connect4 import Connect4
 from gamesmanmpi_tpu_torch.obs import (
     SolveStatusTracker,
@@ -98,8 +108,17 @@ from gamesmanmpi_tpu_torch.obs import (
     flightrec,
     trace_span,
 )
-from gamesmanmpi_tpu_torch.ops.combine import combine_children
-from gamesmanmpi_tpu_torch.ops.window_gather import monotone_window_gather
+from gamesmanmpi_tpu_torch.ops import dense_level
+from gamesmanmpi_tpu_torch.ops.dense_level import (  # noqa: F401 (re-export)
+    _connected_fold,
+    _rank_bits,
+    _unrank_bits,
+)
+# The standalone window gather, re-exported under the name
+# tools/torch_dense_profile.py records through; the steps no longer call it.
+from gamesmanmpi_tpu_torch.ops.window_gather import (  # noqa: F401
+    monotone_window_gather,
+)
 from gamesmanmpi_tpu_torch.solve.engine import record_solve, watched
 from gamesmanmpi_tpu_torch.utils.device import resolve_device
 from gamesmanmpi_tpu_torch.utils.env import env_float, env_opt
@@ -383,72 +402,16 @@ class DenseTables:
 
 
 # ---------------------------------------------------------------------------
-# Level steps (plain torch around the window-gather kernel)
+# Level steps (the kernels of ops/dense_level.py, or their plain versions)
 
 
-def _connected_fold(stones, h: int, connect: int):
-    """Any `connect`-in-a-row in a guard-layout int64 bitboard.
-
-    Same four directions as games/connect4.py: vertical 1, diag-down h,
-    horizontal h+1, diag-up h+2.
-    """
-    won = torch.zeros(stones.shape, dtype=torch.bool, device=stones.device)
-    for d in (1, h, h + 1, h + 2):
-        x = stones
-        for i in range(1, connect):
-            x = x & (stones >> (i * d))
-        won |= x != 0
-    return won
-
-
-def _unrank_bits(ranks, n1: int, binom, cellidx, bitpos):
-    """[P or 1, cb] combinadic ranks -> [P, cb] player-1 bitboards.
-
-    A descending walk over the global cells. binom is the [ncells+1, K]
-    int64 table, indexed directly; cellidx[j] is each class's within-class
-    index of global cell j ([ncells, P] int64, -1 for an absent cell).
-    """
-    ncells, P = cellidx.shape
-    cb = ranks.shape[1]
-    kmax = binom.shape[0] - 1
-    bits = torch.zeros((P, cb), dtype=torch.int64, device=ranks.device)
-    rem = torch.full((P, cb), n1, dtype=torch.int64, device=ranks.device)
-    r = ranks.expand(P, cb).clone()
-    for j in range(ncells - 1, -1, -1):
-        kj = cellidx[j]
-        exists = (kj >= 0)[:, None]
-        cki = binom[kj.clamp(0, kmax)[:, None], rem]  # C(k_j, rem)
-        # C(k, rem) == 0 (k < rem) means every remaining cell must be a
-        # stone; 0 <= r always holds, so `take` fires as required.
-        take = exists & (rem > 0) & (cki <= r)
-        r -= cki * take
-        rem -= take.to(torch.int64)
-        bits |= take.to(torch.int64) * (1 << int(bitpos[j]))
-    return bits
-
-
-def _rank_bits(bits, binom, cellidx_c, bitpos):
-    """[P, cb] stone bitboards -> combinadic ranks under the cell indexing
-    cellidx_c ([ncells, P] int64, the TARGET class per row)."""
-    ncells, P = cellidx_c.shape
-    kmax = binom.shape[0] - 1
-    acc = torch.zeros(bits.shape, dtype=torch.int64, device=bits.device)
-    seen = torch.zeros(bits.shape, dtype=torch.int64, device=bits.device)
-    for j in range(ncells):
-        kj = cellidx_c[j]
-        take = (kj >= 0)[:, None] & ((bits & (1 << int(bitpos[j]))) != 0)
-        seen += take
-        ck = binom[kj.clamp(0, kmax)[:, None], seen]
-        acc += ck * take
-    return acc
-
-
-# Kernel block / window of the child gather. block=2048 divides every
-# cblock >= 2048 (_cblock rounds to a multiple), so no kernel block
-# straddles a profile row; window=4*block covers child-rank spans up to a
-# ~4x per-level expansion ratio.
-WINDOW_BLOCK = 2048
-WINDOW_ELEMS = 8192
+# The window gather's block and window, whose miss partition the backward
+# step counts against. block=2048 divides every cblock >= 2048 (_cblock
+# rounds to a multiple), so no kernel block straddles a profile row;
+# window=4*block covers child-rank spans up to a ~4x per-level expansion
+# ratio.
+WINDOW_BLOCK = dense_level.RUN
+WINDOW_ELEMS = dense_level.WINDOW
 
 
 def build_dense_step(tables: DenseTables, level: int, cblock: int,
@@ -457,136 +420,42 @@ def build_dense_step(tables: DenseTables, level: int, cblock: int,
 
     Returned fn: (rank0 int, child_flat [flat] uint8 (dummy at the top
     level), consts dict of level tensors, binom [ncells+1, K] int64)
-      -> (cells [P, cblock] uint8, nmiss int32 tensor or None)
+      -> (cells [P, cblock] uint8, nmiss int64 tensor or None)
 
-    gather_mode "window" feeds the monotone-filled flat index to the
-    window-gather kernel; "plain" indexes with the clipped flat index.
-    Both give identical cells.
+    gather_mode "window" is ops/dense_level.dense_step: the CUDA kernel on
+    the card, its plain version (the monotone-filled flat index through
+    the window gather's plain version, nmiss counted) on the CPU. "sorted"
+    (the same fill, a clamped torch index) and "plain" (the clamped
+    unfilled index) run the plain version on any device, nmiss None. All
+    give identical cells on in-range lanes.
     """
-    w, h, connect = tables.width, tables.height, tables.connect
-    ncells = tables.ncells
-    n1 = n1_of_level(level)
-    C = tables.class_size[level]
-    Cc = tables.class_size[level + 1] if level < ncells else 1
-    is_top = level == ncells
-    p1_moves = level % 2 == 0   # the player moving OUT of this level
-    mover_is_p1 = level % 2 == 1  # the player who made the ply INTO it
-    bitpos = [int(b) for b in tables.bitpos]
+    geom = dense_level.level_geom(tables, level)
 
     def step(rank0, child_flat, consts, binom):
-        dev = child_flat.device
-        filled = consts["filled"]
-        P = filled.shape[0]
-        ranks = rank0 + torch.arange(cblock, dtype=torch.int64,
-                                     device=dev)[None, :]  # [1, cb]
-        p1 = _unrank_bits(ranks, n1, binom, consts["cellidx"], bitpos)
-        p2 = filled[:, None] ^ p1
-        mover = p1 if mover_is_p1 else p2
-        current = p2 if mover_is_p1 else p1
-        # mover_line: the player to move already lost. current_line
-        # without mover_line: unreachable garbage, made terminal so it
-        # never fans out gathers.
-        prim = (_connected_fold(mover, h, connect)
-                | _connected_fold(current, h, connect))
-        del p2, mover, current
-        if is_top:
-            top = torch.full(prim.shape, TIE, dtype=torch.uint8, device=dev)
-            return top.masked_fill_(prim, LOSE), None
-
-        m = child_flat.shape[0]
-        in_range = ranks < C
-        nmiss = None
-        vals, rems, masks = [], [], []
-        for c in range(w):
-            valid_c = consts["valid"][:, c:c + 1]
-            row_c = consts["move_row"][:, c:c + 1]
-            cbits = (p1 | consts["newbit"][:, c:c + 1]) if p1_moves else p1
-            crank = _rank_bits(cbits, binom, consts["child_cellidx"][:, :, c],
-                               bitpos)
-            flat = row_c * Cc + crank
-            del cbits, crank
-            if gather_mode == "window":
-                # Invalid rows take the previous valid row's last slot (0
-                # before any), pad lanes (rank >= C) their own row's last
-                # slot: the flat vector stays globally non-decreasing.
-                fillr = torch.where(valid_c, row_c,
-                                    consts["move_fill"][:, c:c + 1])
-                fill = torch.where(fillr < 0, torch.zeros_like(fillr),
-                                   fillr * Cc + (Cc - 1))
-                flat = torch.where(valid_c & in_range, flat, fill)
-                cell, nm = monotone_window_gather(
-                    child_flat, flat.reshape(-1), WINDOW_BLOCK, WINDOW_ELEMS)
-                cell = cell.reshape(P, cblock)
-                nmiss = nm if nmiss is None else nmiss + nm
-            else:
-                cell = child_flat[flat.clamp(0, m - 1)]
-            del flat
-            vals.append(cell & 3)
-            rems.append((cell >> 2).to(torch.int32))
-            masks.append(valid_c.expand(P, cblock))
-
-        cv = torch.stack(vals, dim=-1).reshape(P * cblock, w)
-        cr = torch.stack(rems, dim=-1).reshape(P * cblock, w)
-        mk = (torch.stack(masks, dim=-1)
-              & ~prim[..., None]).reshape(P * cblock, w)
-        del vals, rems, masks
-        values, rem_out = combine_children(cv, cr, mk)
-        del cv, cr, mk
-        values = values.reshape(P, cblock).masked_fill_(prim, LOSE)
-        rem_out = rem_out.reshape(P, cblock).masked_fill_(prim, 0)
-        return values | (rem_out.clamp(0, 63).to(torch.uint8) << 2), nmiss
+        if gather_mode == "window":
+            return dense_level.dense_step(geom, rank0, cblock, child_flat,
+                                          consts, binom)
+        cells, _ = dense_level.dense_step_ref(geom, rank0, cblock,
+                                              child_flat, consts, binom,
+                                              gather_mode)
+        return cells, None
 
     return step
 
 
 def build_reach_step(tables: DenseTables, level: int, cblock: int):
-    """The reachability-sweep step for one level (level >= 1).
-
-    reach(y) = OR over columns c of y's class: the top stone of column c
-    belongs to the player who made ply `level` AND the position with that
-    stone removed is reachable AND was not terminal (its own last mover had
-    no line).
+    """The reachability-sweep step for one level (level >= 1):
+    ops/dense_level.reach_step, the CUDA kernel on the card and its plain
+    version on the CPU.
 
     Returned fn: (rank0 int, parent_reach [flat] uint8, consts, binom)
       -> (reach [P, cblock] uint8, count int64 tensor)
     """
-    w, h, connect = tables.width, tables.height, tables.connect
-    n1 = n1_of_level(level)
-    C = tables.class_size[level]
-    Cp = tables.class_size[level - 1]
-    mover_is_p1 = level % 2 == 1           # who made ply `level`
-    parent_mover_is_p1 = (level - 1) % 2 == 1  # who made the ply before
-    bitpos = [int(b) for b in tables.bitpos]
+    geom = dense_level.level_geom(tables, level)
 
     def step(rank0, parent_reach, consts, binom):
-        dev = parent_reach.device
-        filled = consts["filled"]
-        P = filled.shape[0]
-        ranks = rank0 + torch.arange(cblock, dtype=torch.int64,
-                                     device=dev)[None, :]
-        in_range = ranks < C
-        p1 = _unrank_bits(ranks, n1, binom, consts["cellidx"], bitpos)
-        n = parent_reach.shape[0]
-
-        reach = torch.zeros((P, cblock), dtype=torch.bool, device=dev)
-        for c in range(w):
-            ts = consts["topstone"][:, c:c + 1]  # [P, 1]; 0 for empty columns
-            prow = consts["parent_row"][:, c:c + 1]
-            stone_is_p1 = (p1 & ts) != 0
-            color_ok = (ts != 0) & (stone_is_p1 if mover_is_p1
-                                    else ~stone_is_p1)
-            parent_p1 = (p1 ^ ts) if mover_is_p1 else p1
-            parent_filled = filled[:, None] ^ ts
-            parent_mover = (parent_p1 if parent_mover_is_p1
-                            else parent_filled ^ parent_p1)
-            parent_live = ~_connected_fold(parent_mover, h, connect)
-            prank = _rank_bits(parent_p1, binom,
-                               consts["parent_cellidx"][:, :, c], bitpos)
-            flat = prow * Cp + prank
-            pr = parent_reach[flat.clamp(0, n - 1)] != 0
-            reach |= color_ok & parent_live & pr & (prow >= 0)
-        count = (reach & in_range).sum()
-        return reach.to(torch.uint8), count
+        return dense_level.reach_step(geom, rank0, cblock, parent_reach,
+                                      consts, binom)
 
     return step
 
@@ -727,21 +596,23 @@ def _store_cached_counts(board_key: tuple, counts: Dict[int, int]) -> None:
 _TABLES: Dict[tuple, DenseTables] = {}
 
 
+def kernel_launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """Each kernel's launches since the kernels.LAUNCHES snapshot
+    `before`."""
+    return {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()}
+
+
 def gather_mode_from_env() -> str:
     """GAMESMAN_DENSE_GATHER, parsed strictly: unset or ``pallas`` (the
     reference's name for its window kernel) -> "window", ``plain`` ->
-    "plain"; ``sorted`` (not ported) and anything else raise ValueError.
-    The port's default stays the window kernel, where the reference
-    defaults to plain."""
+    "plain", ``sorted`` -> "sorted"; anything else raises ValueError. The
+    port's default stays the window mode (the level kernels on the card),
+    where the reference defaults to plain."""
     raw = env_opt("GAMESMAN_DENSE_GATHER")
     if raw is None or raw == "pallas":
         return "window"
-    if raw == "plain":
-        return "plain"
-    if raw == "sorted":
-        raise ValueError("GAMESMAN_DENSE_GATHER=sorted: the sorted gather "
-                         "mode is not ported; use 'pallas' (the window "
-                         "kernel) or 'plain'")
+    if raw in ("plain", "sorted"):
+        return raw
     raise ValueError(f"GAMESMAN_DENSE_GATHER={raw!r}: expected 'pallas', "
                      "'plain' or 'sorted'")
 
@@ -778,8 +649,10 @@ class DenseSolver:
     .value/.remoteness/.num_positions/.stats/.lookup.
 
     device: "cuda" (default) or "cpu"; a missing card raises
-    DeviceUnavailable. gather_mode: "window" (the CUDA window-gather
-    kernel on the card) or "plain"; None reads GAMESMAN_DENSE_GATHER. The
+    DeviceUnavailable. gather_mode: "window" (the level kernels on the
+    card), "plain" or "sorted" (the plain steps, explicitly chosen); None
+    reads GAMESMAN_DENSE_GATHER. The reach sweep runs the reach kernel on
+    the card in every mode. The
     reachability sweep that counts positions runs once per board per
     process. checkpointer: a utils/checkpoint.LevelCheckpointer to seal
     levels into and resume from. devices: shards of the mesh (module
@@ -803,9 +676,9 @@ class DenseSolver:
             )
         if gather_mode is None:
             gather_mode = gather_mode_from_env()
-        if gather_mode not in ("window", "plain"):
-            raise ValueError(f"gather_mode must be 'window' or 'plain', "
-                             f"got {gather_mode!r}")
+        if gather_mode not in ("window", "plain", "sorted"):
+            raise ValueError(f"gather_mode must be 'window', 'plain' or "
+                             f"'sorted', got {gather_mode!r}")
         self.game = game
         self.store_tables = store_tables
         self.checkpointer = checkpointer
@@ -910,7 +783,9 @@ class DenseSolver:
     def _level_tensors(self, level: int, for_reach: bool,
                        device=None) -> dict:
         """Per-level constants on `device` (default the solver's), cached
-        on the solver."""
+        on the solver: the plain steps' layout (steps first, int64) and, on
+        a CUDA device, the kernels' layout under "kernel"
+        (ops/dense_level.kernel_consts)."""
         device = self.device if device is None else torch.device(device)
         key = (level, for_reach, str(device))
         if key in self._consts:
@@ -940,6 +815,9 @@ class DenseSolver:
                 move_fill=dev(c["move_fill"]),
                 child_cellidx=steps_first(c["child_cellidx"]),
             )
+        if device.type == "cuda":
+            out["kernel"] = dense_level.kernel_consts(self.tables, level,
+                                                      for_reach, device)
         self._consts[key] = out
         return out
 
@@ -1089,7 +967,7 @@ class DenseSolver:
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
-        launches0 = kernels.LAUNCHES["monotone_window_gather"]
+        launches0 = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
         if ckpt is not None:
             if resume_cells is not None:
@@ -1202,11 +1080,13 @@ class DenseSolver:
             "gather_nmiss_per_level": {L: int(v) for L, v in nmiss.items()},
         }
         stats["gather_nmiss"] = sum(stats["gather_nmiss_per_level"].values())
-        # The window-gather kernel's launches in this solve (the wrapper's
-        # count; 0 on the CPU, which takes the plain version): how a solve
-        # in another process, a campaign attempt, shows it ran the kernel.
-        stats["gather_launches"] = (kernels.LAUNCHES["monotone_window_gather"]
-                                    - launches0)
+        # Each kernel's launches in this solve, by name (the wrappers'
+        # counts; 0 on the CPU, which takes the plain versions): how a
+        # solve in another process, a campaign attempt, shows it ran the
+        # kernels. gather_launches: those of the kernel that gathers the
+        # child cells, the backward step's.
+        stats["kernel_launches"] = kernel_launches_since(launches0)
+        stats["gather_launches"] = stats["kernel_launches"]["dense_step"]
         if cuda:
             stats["peak_mem_bytes"] = torch.cuda.max_memory_allocated(
                 self.device)

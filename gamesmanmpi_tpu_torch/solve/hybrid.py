@@ -31,7 +31,8 @@ The seam:
    ``GAMESMAN_HYBRID_RESIDENT_MB`` with ``GAMESMAN_HYBRID_WBLOCK``-state
    blocks;
 5. levels K-1..0 are ordinary dense steps chained from the boundary
-   cells, each through the window-gather kernel (ops/window_gather.py).
+   cells, each through the backward step's kernel (ops/dense_level.py),
+   as the sweep to B runs the reach step's.
 
 Children of reachable positions are reachable, so a reachable level-K
 parent never misses the level-B table; an unreachable (garbage) parent
@@ -65,6 +66,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gamesmanmpi_tpu_torch import kernels
 from gamesmanmpi_tpu_torch.core.bitops import SENTINEL
 from gamesmanmpi_tpu_torch.core.values import LOSE, UNDECIDED
 from gamesmanmpi_tpu_torch.games.connect4 import Connect4
@@ -73,6 +75,7 @@ from gamesmanmpi_tpu_torch.solve.dense import (
     DenseSolver,
     _connected_fold,
     _unrank_bits,
+    kernel_launches_since,
     n1_of_level,
 )
 from gamesmanmpi_tpu_torch.solve.engine import Solver, canonical_scalar
@@ -461,6 +464,7 @@ class HybridSolver:
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
+        launches0 = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
         counts, reach_flat = d._sweep_levels(B)
         t_reach = time.perf_counter() - t0  # the counts synchronised
@@ -537,6 +541,9 @@ class HybridSolver:
             "gather_nmiss_per_level": {L: int(v) for L, v in nmiss.items()},
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(self.device)
                                if cuda else None),
+            # The dense region's kernel launches by name: reach_step in
+            # the sweep to the boundary, dense_step below it.
+            "kernel_launches": kernel_launches_since(launches0),
         }
         stats["gather_nmiss"] = sum(stats["gather_nmiss_per_level"].values())
         self._log(phase="done", **{k: v for k, v in stats.items()

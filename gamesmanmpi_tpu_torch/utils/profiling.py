@@ -4,7 +4,7 @@
 the CPU and, when the card is up, the CUDA activities, and writes one
 Chrome trace (``trace_<pid>.json``, loadable in chrome://tracing or
 Perfetto) into DIR when the block exits: the kernel timeline of the
-solve, the window-gather kernel included. No directory, no profiler.
+solve, the hand-written kernels included. No directory, no profiler.
 """
 
 from __future__ import annotations

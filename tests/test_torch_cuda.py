@@ -186,7 +186,7 @@ def test_checkpointed_solve_on_card_seals_what_the_cpu_seals(engine,
                                                              tmp_path):
     """The same game checkpointed on the card and on the CPU: the same
     files, members, dtypes and arrays; a rerun on the card's directory
-    resumes (the dense one through the gather on no level)."""
+    resumes (the dense one through the backward kernel on no level)."""
     _need_card()
     g = get_game("connect4:w=3,h=4,connect=3")
     solver = Solver if engine == "classic" else DenseSolver
@@ -200,12 +200,12 @@ def test_checkpointed_solve_on_card_seals_what_the_cpu_seals(engine,
         for k, a in members.items():
             assert card[name][k].dtype == a.dtype, (name, k)
             np.testing.assert_array_equal(card[name][k], a, err_msg=name)
-    before = kernels.LAUNCHES["monotone_window_gather"]
+    before = kernels.LAUNCHES["dense_step"]
     again = solver(g, checkpointer=LevelCheckpointer(tmp_path / "cuda")).solve()
     assert (again.value, again.remoteness) == (3, 12)
     if engine == "dense":
         assert again.stats["levels_resumed"] == g.width * g.height + 1
-        assert kernels.LAUNCHES["monotone_window_gather"] == before
+        assert kernels.LAUNCHES["dense_step"] == before
 
 
 @pytest.mark.parametrize("spec", ["tictactoe:sym=1", "nim:heaps=3-4-5",
@@ -330,24 +330,27 @@ def test_sharded_checkpoint_on_card_resumes_and_reshards(tmp_path,
 def test_meshed_dense_and_hybrid_on_card_launch_the_gather(devices,
                                                            monkeypatch):
     """The meshed dense engine and the hybrid's dense region launch the
-    window kernel on the card, with the CPU's cells and nmiss."""
+    level kernels on the card (the gather runs inside the backward
+    step's), with the CPU's cells and nmiss."""
     from gamesmanmpi_tpu_torch.solve.hybrid import HybridSolver
 
     _need_card()
     monkeypatch.setenv("GAMESMAN_FAKE_DEVICES", "4")
     g = get_game("connect4:w=4,h=4")
     cpu = DenseSolver(g, device="cpu", block_elems=1 << 14).solve()
-    before = kernels.LAUNCHES["monotone_window_gather"]
+    before = kernels.LAUNCHES["dense_step"]
     card = DenseSolver(g, block_elems=1 << 14, devices=devices).solve()
-    assert kernels.LAUNCHES["monotone_window_gather"] > before
+    assert kernels.LAUNCHES["dense_step"] > before
     assert card.stats["gather_nmiss_per_level"] == cpu.stats[
         "gather_nmiss_per_level"]
     for L, cells in cpu.cells.items():
         np.testing.assert_array_equal(card.cells[L], cells)
     hy_cpu = HybridSolver(g, cutover=10, device="cpu").solve()
-    before = kernels.LAUNCHES["monotone_window_gather"]
+    before = dict(kernels.LAUNCHES)
     hy = HybridSolver(g, cutover=10, devices=devices).solve()
-    assert kernels.LAUNCHES["monotone_window_gather"] > before
+    assert kernels.LAUNCHES["dense_step"] > before["dense_step"]
+    assert kernels.LAUNCHES["reach_step"] > before["reach_step"]
+    assert hy.stats["kernel_launches"]["reach_step"] > 0
     assert (hy.value, hy.remoteness, hy.num_positions) == (
         hy_cpu.value, hy_cpu.remoteness, hy_cpu.num_positions)
     for L, cells in hy_cpu.cells.items():

@@ -305,7 +305,7 @@ def test_rejects_sym_bad_mode_and_missing_card(monkeypatch):
         dense.DenseSolver(object(), device="cpu")
     with pytest.raises(ValueError):
         dense.DenseSolver(get_game(SMALL[0]), device="cpu",
-                          gather_mode="sorted")
+                          gather_mode="pallas")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailable):
         dense.DenseSolver(get_game(SMALL[0]))  # default device: the card
@@ -355,18 +355,23 @@ def test_lane_slices_are_whole_kernel_blocks():
 
 @pytest.mark.parametrize("raw,want", [
     (None, "window"), ("pallas", "window"), ("plain", "plain"),
-    ("sorted", "not ported"), ("bogus", "expected")])
+    ("sorted", "sorted"), ("bogus", "expected")])
 def test_dense_gather_env_parses_strictly(raw, want, monkeypatch):
     if raw is None:
         monkeypatch.delenv("GAMESMAN_DENSE_GATHER", raising=False)
     else:
         monkeypatch.setenv("GAMESMAN_DENSE_GATHER", raw)
-    if want in ("window", "plain"):
+    if want in ("window", "plain", "sorted"):
         s = dense.DenseSolver(get_game(SMALL[0]), device="cpu")
         assert s.gather_mode == want
         # An explicit mode wins over the environment.
         assert dense.DenseSolver(get_game(SMALL[0]), device="cpu",
                                  gather_mode="plain").gather_mode == "plain"
+        if raw == "sorted":  # a working mode: the CLI solves under it
+            from gamesmanmpi_tpu_torch import cli
+
+            assert cli.main(["solve", SMALL[0], "--engine", "dense",
+                             "--device", "cpu"]) == 0
         return
     with pytest.raises(ValueError, match=want):
         dense.DenseSolver(get_game(SMALL[0]), device="cpu")

@@ -224,14 +224,15 @@ def test_cached_build_reports_ptxas(monkeypatch, tmp_path):
         assert report.name == lib.name[:-len(".so")] + ".ptxas.txt"
         report.write_text(f"ptxas info    : Used 9 registers ({name})")
     libs = build.build_all()
-    assert set(libs) == set(build.SOURCES) == {"window_gather", "double_u32"}
+    assert set(libs) == set(build.SOURCES) == {"window_gather", "double_u32",
+                                               "dense_level"}
     for name in build.SOURCES:
         assert build.PTXAS_REPORT[name].endswith(f"registers ({name})")
     # No report file beside a library: nothing to report, no rebuild.
     build._report_path(build._library_path("double_u32")).unlink()
     monkeypatch.setattr(build, "PTXAS_REPORT", {})
     build.build_all()
-    assert set(build.PTXAS_REPORT) == {"window_gather"}
+    assert set(build.PTXAS_REPORT) == {"window_gather", "dense_level"}
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
