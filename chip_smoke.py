@@ -29,8 +29,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              card equals the same solve on the CPU.
 6. dense 5x5 — the CLI entry point (`solve connect4:w=5,h=5`, device
              cuda) with the launch counts reset just before and read just
-             after: 69,763,700 positions, TIE, remoteness 25, launches
-             of both level kernels (dense_step, reach_step) > 0.
+             after: 69,763,700 positions, TIE, remoteness 25, each level
+             kernel launched once per level (dense_step 26, reach_step
+             25, from the launch arithmetic of DenseSolver._launch_maps).
 7. microbench — first the window gather bit-identical to its plain
              version (and `nmiss` equal) at section 7b's shape, a uint32
              [8M] table and a sorted int32 [32M] index; then the op-level
@@ -110,17 +111,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              abort) within the barrier deadline.
 15. sharded checkpoint, meshed dense, hybrid 5x5 — (a) `solve
              connect4:w=5,h=5 --devices 4 --checkpoint-dir D` in-process
-             (GAMESMAN_FAKE_DEVICES=4, default compression): 69,763,700 /
-             TIE / 25, every level identical to phase 9's, every level
-             sealed per shard with the edges and the frontier snapshot;
-             the seal seconds and the bytes raw, stored and on disk. (b)
+             (GAMESMAN_FAKE_DEVICES=4): 69,763,700 / TIE / 25, every
+             level identical to phase 9's, every level sealed per shard
+             with the edges and the frontier snapshot; the seal seconds
+             and the bytes raw, stored and on disk. (b)
              A child killed by GAMESMAN_FAULTS=sharded.backward:kill:10
              exits 77; the rerun on a (hard-linked) copy resumes to phase
              9's tables, every level shard sealed before the kill keeping
              its mtime and crc. (c) Copies of the killed tree resumed at
              --devices 2 and 8 report resharded_from 4, tables identical.
-             (b) and (c) set GAMESMAN_CKPT_COMPRESS=0 (raw files) to keep
-             the phase short. (d) `export-db --from-checkpoint D` writes
+             (a)-(c) set GAMESMAN_CKPT_COMPRESS=0 (raw files; phase 10
+             seals compressed) to keep the phase short. (d) `export-db --from-checkpoint D` writes
              phase 12's v1 files (sha256). (e) A 2-process world on the
              card (5x4, --devices 4 --checkpoint-dir): rank 1 SIGKILLed in
              the backward, rank 0 exits 124; the world's rerun resumes,
@@ -228,20 +229,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              v1 and v2 DBs exits 0, and 1 on a copy of v1 with one byte
              flipped, as tools/check_db.py does.
 19. dense level kernels — (a) every launch of both level kernels
-             (dense_step, reach_step) held against its plain version on
-             the same inputs (in-range lanes bit-identical, nmiss and the
-             reach count equal) in dense solves of 4x4 (block 2^14: several
-             blocks per level, ragged pad lanes; one device, 2 and 3
-             shards) and 5x4 (block 2^18), the reach counts Tromp's, the
-             shards' cells and nmiss the one-device run's; and both
-             kernels in the 64-bit words of 6x5 and 6x6+ on every rank
-             block of every 4x4 level. (b) At 5x5 the widest backward
-             block and the widest reach block: kernel and plain version
-             in turns, beside the bound (the larger of the bytes over the
-             memory rate and the integer operations of
-             ops/dense_level.step_work over the INT32 issue rate, SMs x 64
-             x `nvidia-smi` clocks.max.sm). (c) The CLI's 5x5 dense solve
-             on the kernels against the solve on the plain steps
+             (dense_step, reach_step; one per level and shard) held
+             against its plain version over the same lanes (the level
+             array bit-identical, nmiss and the reach count equal) in
+             dense solves of 4x4 (block 2^14: several blocks per level,
+             ragged pad lanes; one device, 2 and 3 shards) and 5x4 (block
+             2^18), the launches as many as the launch arithmetic says,
+             the reach counts Tromp's, the shards' cells and nmiss the
+             one-device run's; and both kernels in the 64-bit words of
+             6x5 and 6x6+ on every level of 4x4, one device and a 3-shard
+             mesh's slices. (b) At 5x5 the widest backward level and the
+             widest reach level: kernel and plain version in turns, beside
+             the bound (the larger of the bytes over the memory rate and
+             the integer operations of ops/dense_level.step_work over the
+             integer issue rate, SMs x 128 x `nvidia-smi` clocks.max.sm);
+             then every level's launch of the backward and of the reach
+             sweep timed, each level's cells phase 6's, and the sums of
+             kernel ms against the sums of bounds. (c) The CLI's 5x5
+             dense solve on the kernels against the solve on the plain steps
              (GAMESMAN_DENSE_GATHER=plain, the reach sweep on its plain
              version), in turns, the reach sweep run each time: backward
              and reach seconds and peak memory, every level of every run
@@ -509,9 +514,10 @@ def dense_5x5_phase():
     if got != (69763700, 3, 25):
         raise AssertionError(f"5x5 (positions, value, rem) {got} != "
                              "(69763700, TIE=3, 25)")
-    if min(step_launches(launches).values()) <= 0:
-        raise AssertionError(f"5x5 solve launched no level kernel: "
-                             f"{launches}")
+    want = expected_launches("connect4:w=5,h=5")
+    if step_launches(launches) != want:
+        raise AssertionError(f"5x5 solve launched {launches}, not one per "
+                             f"level: {want}")
     s = result.stats
     emit("dense 5x5", report=report, positions=got[0], value="TIE",
          remoteness=got[2], secs_backward=s["secs_backward"],
@@ -1801,24 +1807,47 @@ STEP_KERNELS = {"dense_step": "gamesmanmpi_tpu/solve/dense.py:577",
                 "reach_step": "gamesmanmpi_tpu/solve/dense.py:759"}
 
 
-def in_range(geom, rank0, width, device):
-    """[width] bool: the lanes of [rank0, rank0+width) below the class
-    size (pad lanes beyond it carry no position)."""
-    return (rank0 + torch.arange(width, device=device)) < geom.size
+def expected_launches(spec, **solver_args):
+    """Each level kernel's launches in one dense solve of `spec` with its
+    reach sweep, from the launch arithmetic: one per level and shard
+    slice (solve/dense.DenseSolver._launch_maps)."""
+    from gamesmanmpi_tpu_torch.games import get_game
+    from gamesmanmpi_tpu_torch.solve import dense
+
+    s = dense.DenseSolver(get_game(spec), **solver_args)
+    nc = s.tables.ncells
+    return {"dense_step": sum(len(s._launch_maps(L, False))
+                              for L in range(nc + 1)),
+            "reach_step": sum(len(s._launch_maps(L, True))
+                              for L in range(1, nc + 1))}
 
 
-def same_step(name, geom, rank0, width, out, ref, extra, extra_ref):
+def eager_inputs(geom, device):
+    """The plain steps' constants and int64 binomials for `geom`'s level
+    on `device` (the kernels carry theirs in the level's pack)."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch.ops import dense_level
+    from gamesmanmpi_tpu_torch.solve import dense
+
+    t = dense.tables_for(geom.width, geom.height, geom.connect)
+    binom = torch.as_tensor(t.binom.astype(np.int64), device=device)
+    return {r: dense_level.eager_consts(t, geom.level, r, device)
+            for r in ((False, True) if geom.level else (False,))}, binom
+
+
+def same_step(name, geom, lmap, out, ref, extra, extra_ref):
     """A level kernel's launch against its plain version on the same
-    inputs: in-range lanes bit-identical and nmiss (or the reach count)
+    inputs: the whole output (the level's [P, C] or a mesh shard's
+    compact one) bit-identical (both started from the same bytes, so
+    lanes neither writes stay equal) and nmiss (or the reach count)
     equal, else AssertionError."""
-    ok = in_range(geom, rank0, width, out.device)
-    if not torch.equal(signed_view(out[:, ok]), signed_view(ref[:, ok])) \
+    if not torch.equal(signed_view(out), signed_view(ref)) \
             or (extra is None) != (extra_ref is None) \
             or (extra is not None and int(extra) != int(extra_ref)):
         raise AssertionError(
             f"{name} differs from its plain version at level {geom.level}, "
-            f"ranks [{rank0}, {rank0 + width}) x {out.shape[0]} rows: "
-            f"{None if extra is None else int(extra)} vs "
+            f"{lmap}: {None if extra is None else int(extra)} vs "
             f"{None if extra_ref is None else int(extra_ref)}")
 
 
@@ -1826,7 +1855,7 @@ def same_step(name, geom, rank0, width, out, ref, extra, extra_ref):
 def checked_step(tally):
     """Route the dense engine's level steps (the meshed dense engine's and
     the hybrid's dense region go through solve/dense.py) through wrappers
-    that also run the plain version on the same inputs: in-range lanes
+    that also run the plain version over the same lanes: the level array
     bit-identical, nmiss and the reach count equal on every launch, else
     AssertionError. `tally` collects each kernel's launches checked, the
     plain version's summed nmiss and reach count, and the distinct
@@ -1835,22 +1864,29 @@ def checked_step(tally):
 
     kernel = {"dense_step": dense_level.dense_step,
               "reach_step": dense_level.reach_step}
+    cache = {}
 
     def wrap(name):
-        def both(geom, rank0, width, src, consts, binom):
-            out, extra = kernel[name](geom, rank0, width, src, consts, binom)
+        def both(geom, lmap, src, consts, binom, out):
+            before = out.clone()
+            extra = kernel[name](geom, lmap, src, consts, binom, out)
+            key = (geom.width, geom.height, geom.connect, geom.level,
+                   str(out.device))
+            if key not in cache:
+                cache[key] = eager_inputs(geom, out.device)
+            eager, binom64 = cache[key]
             if name == "dense_step":
-                ref, extra_ref = dense_level.dense_step_ref(
-                    geom, rank0, width, src, consts, binom, "window")
+                extra_ref = dense_level.dense_level_ref(
+                    geom, lmap, src, eager[False], binom64, before)
             else:
-                ref, extra_ref = dense_level.reach_step_ref(
-                    geom, rank0, width, src, consts, binom)
-            same_step(name, geom, rank0, width, out, ref, extra, extra_ref)
+                extra_ref = dense_level.reach_level_ref(
+                    geom, lmap, src, eager[True], binom64, before)
+            same_step(name, geom, lmap, out, before, extra, extra_ref)
             tally["launches_checked"][name] += 1
             tally["plain_" + ("nmiss" if name == "dense_step"
                               else "reach")] += int(extra_ref or 0)
-            tally["shapes"].add((name, geom.level, out.shape[0], width))
-            return out, extra
+            tally["shapes"].add((name, geom.level, lmap.P, lmap.width))
+            return extra
         return both
 
     dense_level.dense_step = wrap("dense_step")
@@ -1987,10 +2023,11 @@ def reshard_hybrid_phase(result, dense_result, tmp, v1, spec=C55,
             "dense": dict(secs_backward=dense_result.stats["secs_backward"],
                           peak_mem_bytes=dense_result.stats.get(
                               "peak_mem_bytes"))}
-    # (a) Uninterrupted sharded checkpoint, default compression.
+    # (a) Uninterrupted sharded checkpoint, raw files: phase 10 holds the
+    # compressed seals, which DEFLATE on one thread for minutes here.
     D = tmp / "sharded_ckpt"
     ta = time.perf_counter()
-    with env_set(GAMESMAN_FAKE_DEVICES=4):
+    with env_set(GAMESMAN_FAKE_DEVICES=4, GAMESMAN_CKPT_COMPRESS="0"):
         full, report = cli_solve(["solve", spec, "--devices", "4",
                                   "--checkpoint-dir", str(D), *extra])
     secs_a = time.perf_counter() - ta
@@ -3190,7 +3227,18 @@ def plain_reach_steps():
     from gamesmanmpi_tpu_torch.ops import dense_level
 
     kernel = dense_level.reach_step
-    dense_level.reach_step = dense_level.reach_step_ref
+    cache = {}
+
+    def plain(geom, lmap, src, consts, binom, out):
+        # The path hands the kernel's pack on the card: the plain version
+        # takes the eager constants, uploaded here once per level.
+        if geom.level not in cache:
+            cache[geom.level] = eager_inputs(geom, out.device)
+        eager, binom64 = cache[geom.level]
+        return dense_level.reach_level_ref(geom, lmap, src, eager[True],
+                                           binom64, out)
+
+    dense_level.reach_step = plain
     try:
         yield
     finally:
@@ -3219,12 +3267,16 @@ def checked_solves(dev):
                 r = dense.DenseSolver(get_game(spec), device=dev,
                                       block_elems=block,
                                       devices=devices).solve()
+                expected = expected_launches(spec, device=dev,
+                                             block_elems=block,
+                                             devices=devices)
             launches = step_launches(r.stats["kernel_launches"])
             if r.num_positions != want \
                     or tally["plain_reach"] != want - 1 \
                     or tally["plain_nmiss"] != r.stats["gather_nmiss"] \
                     or (dev.type == "cuda"
-                        and tally["launches_checked"] != launches):
+                        and not tally["launches_checked"] == launches
+                        == expected):
                 raise AssertionError(f"checked {spec} devices={devices}: "
                                      f"{r.num_positions}, {tally}, "
                                      f"{launches}")
@@ -3245,115 +3297,197 @@ def checked_solves(dev):
 
 def wide_word_steps(dev, solved):
     """(a) The 64-bit instantiations (the words of 6x5 and of 6x6 and up)
-    on every level of 4x4: each rank block of each level through both
-    kernels and their plain versions, in-range lanes bit-identical and
-    nmiss / the reach count equal (the reach over a seeded parent reach).
-    -> launches checked per word set."""
+    on every level of 4x4: each level's launch (one device, and each
+    slice of a 3-shard mesh) through both kernels and their plain
+    versions, the level array bit-identical and nmiss / the reach count
+    equal (the reach over a seeded parent reach). -> launches checked per
+    word set."""
     import dataclasses
 
     from gamesmanmpi_tpu_torch.ops import dense_level
     from gamesmanmpi_tpu_torch.solve import dense
 
-    s = dense.DenseSolver(solved.game, device=dev, block_elems=1 << 14)
-    t = s.tables
     gen = torch.Generator(device="cpu").manual_seed(19)
     out = {}
+    with env_set(GAMESMAN_FAKE_DEVICES=4):
+        solvers = [dense.DenseSolver(solved.game, device=dev,
+                                     block_elems=1 << 14, devices=n)
+                   for n in (1, 3)]
+    t = solvers[0].tables
     for words in (dense_level.Words(64, 32, 32), dense_level.Words(64, 32, 64),
                   dense_level.Words(64, 64, 64)):
         n = 0
         for L in range(t.ncells + 1):
             geom = dataclasses.replace(dense_level.level_geom(t, L),
                                        words=words)
-            cblock, nblk = s._cblock(L)
             for for_reach in ((False, True) if L else (False,)):
-                consts = dict(s._level_tensors(L, for_reach),
-                              kernel=dense_level.kernel_consts(
-                                  t, L, for_reach, dev, words))
+                pack = {"pack": torch.from_numpy(dense_level.kernel_pack(
+                    t, L, for_reach, words)).to(dev)}
                 if for_reach:
                     m = len(t.profiles[L - 1]) * t.class_size[L - 1]
                     src = torch.randint(0, 2, (m,), generator=gen).to(
                         torch.uint8).to(dev)
                     kern, ref = dense_level.reach_step, \
-                        dense_level.reach_step_ref
+                        dense_level.reach_level_ref
                 else:
                     src = (torch.from_numpy(solved.cells[L + 1]).reshape(-1)
                            if L < t.ncells
                            else torch.zeros(1, dtype=torch.uint8)).to(dev)
-                    kern = dense_level.dense_step
-
-                    def ref(*a):
-                        return dense_level.dense_step_ref(*a, "window")
-                for b in range(nblk):
-                    args = (geom, b * cblock, cblock, src, consts, s._binom)
-                    got, extra = kern(*args)
-                    want, extra_ref = ref(*args)
-                    same_step("reach_step" if for_reach else "dense_step",
-                              geom, b * cblock, cblock, got, want, extra,
-                              extra_ref)
-                    n += 1
+                    kern, ref = dense_level.dense_step, \
+                        dense_level.dense_level_ref
+                eager = solvers[0]._level_tensors(L, for_reach)
+                binom = solvers[0]._binom
+                # The card takes the pack, the CPU rehearsal the plain
+                # constants (as solve/dense.py hands them).
+                consts, kbinom = ((pack, None) if dev.type == "cuda"
+                                  else (eager, binom))
+                for s in solvers:
+                    for _, lmap in s._launch_maps(L, for_reach):
+                        got = torch.zeros((lmap.P, lmap.out_cols),
+                                          dtype=torch.uint8, device=dev)
+                        want = got.clone()
+                        extra = kern(geom, lmap, src, consts, kbinom, got)
+                        extra_ref = ref(geom, lmap, src, eager, binom, want)
+                        same_step("reach_step" if for_reach
+                                  else "dense_step", geom, lmap, got, want,
+                                  extra, extra_ref)
+                        n += 1
         out[f"bits{words.bits}_rank{words.rank}_flat{words.flat}"] = n
     return out
 
 
+def level_case(s, L, for_reach, src):
+    """One level's launch of solver `s` at level L over the gather source
+    `src`: (kernel, plain, work, pack bytes), the first two closures that
+    write the level's [P, C] array (each its own) and return the counter
+    of the launch."""
+    from gamesmanmpi_tpu_torch.ops import dense_level
+
+    t = s.tables
+    geom = dense_level.level_geom(t, L)
+    P, C = len(t.profiles[L]), t.class_size[L]
+    cblock, nblk = s._cblock(L)
+    lmap = dense_level.LaunchMap(P, C, cblock, nblk)
+    eager = s._level_tensors(L, for_reach)
+    kc = s._kernel_consts(L, for_reach, src.device)
+    out_k = torch.zeros((P, C), dtype=torch.uint8, device=src.device)
+    out_p = torch.zeros_like(out_k)
+    if for_reach:
+        work = dense_level.reach_followed(geom, lmap, eager, s._binom, src)
+
+        def kernel():
+            return dense_level.reach_step(geom, lmap, src, kc, None, out_k)
+
+        def plain():
+            return dense_level.reach_level_ref(geom, lmap, src, eager,
+                                               s._binom, out_p)
+    else:
+        work = dense_level.dense_followed(geom, lmap, eager)
+
+        def kernel():
+            return dense_level.dense_step(geom, lmap, src, kc, None, out_k)
+
+        def plain():
+            return dense_level.dense_level_ref(geom, lmap, src, eager,
+                                               s._binom, out_p)
+    kernel.out, plain.out, kernel.geom, kernel.lmap = out_k, out_p, geom, lmap
+    return kernel, plain, work, kc["pack"].numel() * 4
+
+
+def bound_of(geom, m, work, pack_bytes, rate, int_rate):
+    """The least time of a launch: the larger of its bytes over the memory
+    rate and its integer operations (ops/dense_level.step_work) over the
+    integer issue rate."""
+    from gamesmanmpi_tpu_torch.ops import dense_level
+
+    nbytes, ops = dense_level.step_work(geom, m, work, pack_bytes)
+    by_bytes, by_ops = nbytes / rate * 1e3, ops / int_rate * 1e3
+    return dict(bound_bytes=nbytes, bound_ops=ops, bytes_ms=by_bytes,
+                ops_ms=by_ops, bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
 def timed_block(dev, rate, int_rate, dense_result, for_reach):
-    """(b) At 5x5, the widest block of the backward (or the reach sweep):
-    kernel and plain version timed in turns, the kernel's bound the
-    larger of its bytes over the memory rate and its integer operations
-    (ops/dense_level.step_work) over the INT32 issue rate."""
+    """(b) At 5x5, the widest level of the backward (or the reach sweep),
+    one launch over all its lanes: kernel and plain version timed in
+    turns, beside the bound."""
     from gamesmanmpi_tpu_torch.bench.kernel_cases import time_turns
     from gamesmanmpi_tpu_torch.games import get_game
-    from gamesmanmpi_tpu_torch.ops import dense_level
     from gamesmanmpi_tpu_torch.solve import dense
 
     s = dense.DenseSolver(get_game(C55), device=dev)
     t = s.tables
     levels = range(1, t.ncells + 1) if for_reach else range(t.ncells)
     L = max(levels, key=lambda k: len(t.profiles[k]) * s._cblock(k)[0])
-    width = s._cblock(L)[0]
-    geom = dense_level.level_geom(t, L)
-    consts = s._level_tensors(L, for_reach)
     if for_reach:
         _, src = s._sweep_levels(L - 1)  # the parent level's real reach
-        kern, name = dense_level.reach_step, "reach_step"
-
-        def plain():
-            return dense_level.reach_step_ref(geom, 0, width, src, consts,
-                                              s._binom)
-        lanes, followed = dense_level.reach_followed(geom, 0, width, consts,
-                                                     s._binom, src)
     else:
         src = torch.from_numpy(dense_result.cells[L + 1]).reshape(-1).to(dev)
-        kern, name = dense_level.dense_step, "dense_step"
-
-        def plain():
-            return dense_level.dense_step_ref(geom, 0, width, src, consts,
-                                              s._binom, "window")
-        lanes, followed = dense_level.dense_followed(geom, 0, width, consts)
-
-    def kernel():
-        return kern(geom, 0, width, src, consts, s._binom)
-
-    got, extra = kernel()
-    want, extra_ref = plain()
-    same_step(name, geom, 0, width, got, want, extra, extra_ref)
-    del got, want
+    kernel, plain, work, pack_bytes = level_case(s, L, for_reach, src)
+    extra, extra_ref = kernel(), plain()
+    name = "reach_step" if for_reach else "dense_step"
+    same_step(name, kernel.geom, kernel.lmap, kernel.out, plain.out, extra,
+              extra_ref)
     times = time_turns({"kernel": kernel, "plain": plain}, rounds=3,
                        iters=2, warmup=1)
-    P = consts["filled"].shape[0]
-    nbytes, ops = dense_level.step_work(geom, P, width, src.shape[0], lanes,
-                                        followed, for_reach)
-    by_bytes, by_ops = nbytes / rate * 1e3, ops / int_rate * 1e3
+    b = bound_of(kernel.geom, src.shape[0], work, pack_bytes, rate,
+                 int_rate)
     k = times["kernel"]
-    bound = max(by_bytes, by_ops)
-    return dict(level=L, rows=P, width=width, lanes=P * width,
-                in_range_lanes=lanes, followed=followed, bound_bytes=nbytes,
-                bound_ops=ops, bytes_ms=by_bytes, ops_ms=by_ops,
-                ms=k["median_ms"], ms_min=k["min_ms"], ms_max=k["max_ms"],
-                samples=k["samples"], plain_ms=times["plain"]["median_ms"],
-                library_ms=None, bound_ms=bound,
-                bound_by="bytes" if by_bytes >= by_ops else "operations",
-                bound_share=bound / k["median_ms"], max_abs_err=0,
-                extra=None if extra is None else int(extra))
+    lmap = kernel.lmap
+    return dict(level=L, rows=lmap.P, width=lmap.cblock,
+                lanes=lmap.P * lmap.cblock * lmap.nblk,
+                in_range_lanes=work.lanes, followed=work.pairs,
+                folds=work.folds, ms=k["median_ms"], ms_min=k["min_ms"],
+                ms_max=k["max_ms"], samples=k["samples"],
+                plain_ms=times["plain"]["median_ms"], library_ms=None,
+                bound_share=b["bound_ms"] / k["median_ms"], max_abs_err=0,
+                extra=None if extra is None else int(extra), **b)
+
+
+def timed_levels(dev, rate, int_rate, dense_result, for_reach):
+    """(b) Every level's launch of the 5x5 backward (or the reach sweep,
+    each level over the previous one's reach as the kernel made it), one
+    launch timed at a time: the level's cells equal phase 6's (the reach
+    counts the sweep's), and the sums of kernel ms and of bounds."""
+    import numpy as np
+
+    from gamesmanmpi_tpu_torch.bench.kernel_cases import time_turns
+    from gamesmanmpi_tpu_torch.games import get_game
+    from gamesmanmpi_tpu_torch.solve import dense
+
+    s = dense.DenseSolver(get_game(C55), device=dev)
+    t = s.tables
+    rows = []
+    reach = torch.ones((1,), dtype=torch.uint8, device=dev)
+    for L in (range(1, t.ncells + 1) if for_reach else range(t.ncells + 1)):
+        if for_reach:
+            src = reach
+        elif L < t.ncells:
+            src = torch.from_numpy(dense_result.cells[L + 1]).reshape(-1).to(
+                dev)
+        else:
+            src = torch.zeros((1,), dtype=torch.uint8, device=dev)
+        kernel, _, work, pack_bytes = level_case(s, L, for_reach, src)
+        extra = kernel()
+        if for_reach:
+            reach = kernel.out.clone().reshape(-1)
+            if int(extra) != int(reach.sum()):
+                raise AssertionError(f"reach level {L}: count {int(extra)}")
+        elif not np.array_equal(kernel.out.cpu().numpy(),
+                                dense_result.cells[L]):
+            raise AssertionError(f"backward level {L} differs from phase 6")
+        k = time_turns({"kernel": kernel}, rounds=2, iters=5,
+                       warmup=1)["kernel"]
+        b = bound_of(kernel.geom, src.shape[0], work, pack_bytes, rate,
+                     int_rate)
+        rows.append(dict(level=L, grid=kernel.lmap.grid, lanes=work.lanes,
+                         ms=k["median_ms"], bound_ms=b["bound_ms"],
+                         bound_by=b["bound_by"],
+                         extra=None if extra is None else int(extra)))
+    ms = sum(r["ms"] for r in rows)
+    bound = sum(r["bound_ms"] for r in rows)
+    return dict(launches=len(rows), ms_sum=ms, bound_ms_sum=bound,
+                share=bound / ms, levels=rows)
 
 
 def cli_in_turns(dense_result, spec=C55, answer=(69763700, "TIE", 25),
@@ -3417,6 +3551,10 @@ def dense_level_phase(dev, rate, int_rate, dense_result, spec=C55,
                                      reach)
             emit(f"dense level kernels (b) {name}", int32_ops_per_sec=int_rate,
                  hbm_bytes_per_sec=rate, **rows[name])
+            rows[name]["per_level"] = timed_levels(dev, rate, int_rate,
+                                                   dense_result, reach)
+            emit(f"dense level kernels (b) {name} per level",
+                 **rows[name]["per_level"])
     runs = cli_in_turns(dense_result, spec, answer, extra)
     emit("dense level kernels (c)", runs=runs, levels_identical=len(
         dense_result.cells), secs=time.perf_counter() - t0)
@@ -3493,6 +3631,9 @@ def main() -> int:
              "bound_share": m["bound_share"]}
         if by_path:
             r["launches_by_path"] = by_path
+        if "per_level" in m:
+            r["per_level"] = {k: m["per_level"][k] for k in (
+                "launches", "ms_sum", "bound_ms_sum", "share")}
         if "shapes" in m:
             r["shapes"] = [{k: s[k] for k in (
                 "shape", "n", "m", "ms", "plain_ms", "library_ms",
@@ -3510,7 +3651,8 @@ def main() -> int:
         # shape) and the doubling; for the level kernels the dense 5x5
         # solve, the dense campaign's resumed attempt and the two
         # counts-file dense children, with every dense path's count
-        # beside (times at the widest 5x5 block, phase 19 (b)).
+        # beside (times at the widest 5x5 level, and summed over every
+        # level, phase 19 (b)).
         row("monotone_window_gather",
             "gamesmanmpi_tpu_torch/kernels/csrc/window_gather.cu",
             "gamesmanmpi_tpu/ops/pallas_gather.py:116",

@@ -13,7 +13,7 @@ time the same inputs the same way:
   function must move: every input read once, every output written once.
 * :func:`nvidia_smi_line`, :func:`hbm_bytes_per_sec` — the card's name and
   power limit, and its published memory rate.
-* :func:`int32_ops_per_sec` — the card's peak INT32 issue rate, the
+* :func:`int32_ops_per_sec` — the card's peak integer issue rate, the
   bound of the integer-bound level kernels.
 """
 
@@ -62,12 +62,17 @@ def hbm_bytes_per_sec(name: str) -> float:
     return 3.35e12  # H100 SXM
 
 
-#: INT32 lanes per SM per clock on Hopper (four partitions of 16).
-INT32_LANES_PER_SM = 64
+#: Integer lanes per SM per clock at most on Hopper: four schedulers, one
+#: warp instruction (32 lanes) each. Each pipe alone gives half of it (the
+#: ALU's shifts, logic and compares; the FMA pipe's IMAD forms of adds,
+#: moves and multiply-adds), but a mix can issue to both at once, so no
+#: integer work takes less than its operations over this rate.
+#: tools/torch_int_rate.py measures each pipe and the mix on the card.
+INT32_LANES_PER_SM = 128
 
 
 def int32_ops_per_sec() -> float:
-    """Peak INT32 issue rate of card 0: its SMs x INT32_LANES_PER_SM x
+    """Peak integer issue rate of card 0: its SMs x INT32_LANES_PER_SM x
     its maximum SM clock as `nvidia-smi` reports it (clocks.max.sm)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",

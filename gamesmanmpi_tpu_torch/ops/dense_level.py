@@ -6,40 +6,49 @@ XLA program per (level, block width): ``build_dense_step``
 (gamesmanmpi_tpu/solve/dense.py:577) for the backward sweep and
 ``build_reach_step`` (:759) for the reachability sweep, ``lax.fori_loop``
 walks over the board's cells in the reference's narrowed words. Here each
-is one CUDA kernel (kernels/csrc/dense_level.cu), one thread per lane of a
-[P, width] block whose ranks start at ``rank0``; no intermediate touches
+is one CUDA kernel (kernels/csrc/dense_level.cu), launched once per level
+(and mesh shard) over every rank block of the level, one thread per lane,
+writing straight into the level's [P, C] array; no intermediate touches
 device memory.
 
-* :func:`dense_step` — per lane: unrank player 1's stones, both win
-  folds, per move the child's bitboard, combinadic rank, flat index
-  (with the monotone fill of the window gather) and packed cell, then the
+* :func:`dense_step` — per lane: one descending walk over the level's
+  class indices that unranks player 1's stones and collects every
+  child's combinadic rank (the reference's ``_rank_all_moves_fused``,
+  :496, walked downward), both win folds, per move the flat index (with
+  the monotone fill of the window gather) and packed cell, then the
   negamax combine (ops/combine.py's rules) -> the lane's packed cell; and
   the window gather's miss count over the same partition as
   ops/window_gather.monotone_window_gather_ref (so ``nmiss`` equals the
   eager window path's to the lane).
-* :func:`reach_step` — per lane: the OR over columns of "the top stone is
-  the last mover's, the parent had no line and is reachable" -> the u8
-  reach, and the block's count of in-range reached lanes.
+* :func:`reach_step` — per lane: the same walk collecting every parent's
+  rank, then the OR over columns of "the top stone is the last mover's,
+  the parent had no line and is reachable" -> the u8 reach, and the
+  count of reached lanes.
 * :func:`dense_step_ref`, :func:`reach_step_ref` — the plain PyTorch
-  versions (int64 eager ops; the only route of the ``plain`` and
-  ``sorted`` gather modes).
-* :func:`word_widths`, :func:`level_geom`, :func:`kernel_consts`,
-  :func:`step_plan`, :data:`ARGS` — the launch arithmetic: the word widths
-  (the reference's bits/rank/flat dtypes), the constants in the kernel's
-  layout, grid and shared memory, and the launch's argument vector.
+  versions of one rank block (int64 eager ops; the only route of the
+  ``plain`` and ``sorted`` gather modes); :func:`dense_level_ref`,
+  :func:`reach_level_ref` run them over a launch's blocks.
+* :class:`LaunchMap`, :func:`kernel_pack`, :func:`step_plan`,
+  :data:`ARGS` — the launch arithmetic: which lanes each CTA takes, the
+  constants packed in the kernel's layout (one array per level and kind),
+  grid and shared memory, and the launch's argument vector.
+* :func:`fused_walk` — a numpy model of the kernels' walk, for the tests.
+* :func:`step_work` and the counts it takes — the least work of a launch
+  (its bound).
 
 A wrapper launches its kernel for a CUDA tensor (counting the launch in
-kernels.LAUNCHES) and returns the plain version for a CPU tensor; any
-other device raises. A failed build or launch raises: nothing falls back.
+kernels.LAUNCHES) and takes the plain version for a CPU tensor; any other
+device raises. A failed build or launch raises: nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,16 +67,21 @@ from gamesmanmpi_tpu_torch.ops.window_gather import (
 THREADS = 256
 RUN = 2048
 WINDOW = 8192
-#: Widest board and most cells the kernels take (shared-memory arrays).
+#: Widest board and most cells the kernels take.
 MAX_COLS = 32
 MAX_CELLS = 64
+#: int32 words of a row record before its heights (filled, low and high).
+REC_HEIGHTS = 2
+#: The binomial table's row stride in rank words: K of the widest board
+#: (MAX_CELLS), so the kernel's table offsets are immediates.
+BINOM_STRIDE = MAX_CELLS // 2 + 2
 
 #: The launch functions' argument vector, in the order of the `Arg` enum
 #: of kernels/csrc/dense_level.cu (a test holds the two together).
-ARGS = ("P", "width", "rank0", "n", "size", "adj", "m", "nwin", "w", "h",
-        "connect", "ncells", "n1", "K", "level", "words", "grid", "smem",
-        "src", "out", "counter", "binom", "cellidx", "filled", "bits",
-        "valid", "row", "fill", "ccellidx")
+ARGS = ("P", "size", "cblock", "lo", "width", "nblk", "runs", "adj", "m",
+        "nwin", "w", "h", "connect", "ncells", "n1", "K", "level", "words",
+        "grid", "smem", "ld", "ostep", "obase", "src", "out", "counter",
+        "binom", "rows")
 
 
 # ---------------------------------------------------------------------------
@@ -160,47 +174,89 @@ def level_geom(tables, level: int) -> LevelGeom:
 
 
 # ---------------------------------------------------------------------------
-# The kernel layout of the constants
+# The constants: the plain steps' layout and the kernels' packed one
 
 
-def _word_array(a: np.ndarray, bits: int) -> torch.Tensor:
-    """Unsigned words as a same-width signed tensor holding their bits."""
-    u, s = (np.uint32, np.int32) if bits == 32 else (np.uint64, np.int64)
-    return torch.from_numpy(np.ascontiguousarray(a.astype(u)).view(s))
-
-
-def kernel_consts(tables, level: int, for_reach: bool, device,
-                  words: Optional[Words] = None) -> dict:
-    """A level's constants in the kernels' layout on `device`: every array
-    row-major with the profile row first ([P, ...], where the eager steps
-    take them steps first), cell indices int8, row numbers int32, flags
-    u8, bit masks (and the binomials) in the kernel's word width (`words`,
-    default the board's word_widths; a launch's geometry must carry the
-    same), held as same-width signed tensors."""
-    words = words or word_widths(tables.width, tables.height)
+def eager_consts(tables, level: int, for_reach: bool, device) -> dict:
+    """A level's constants in the plain steps' layout on `device`: int64
+    (bool for `valid`), cell indices steps first ([ncells, P, ...])."""
     c = tables.level_consts(level)
 
-    def i8(a):
-        return torch.from_numpy(np.ascontiguousarray(a.astype(np.int8)))
+    def dev(a, dtype=torch.int64):
+        return torch.as_tensor(
+            np.ascontiguousarray(a.astype(np.int64)), device=device
+        ).to(dtype)
 
-    def i32(a):
-        return torch.from_numpy(np.ascontiguousarray(a.astype(np.int32)))
+    def steps_first(a):  # [P, ..., ncells] -> [ncells, P, ...]
+        return dev(np.moveaxis(a, -1, 0))
 
-    out = dict(cellidx=i8(c["cellidx"]),
-               filled=_word_array(c["filled"], words.bits),
-               binom=_word_array(tables.binom, words.rank))
+    out = dict(cellidx=steps_first(c["cellidx"]), filled=dev(c["filled"]))
     if for_reach:
-        out.update(topstone=_word_array(c["topstone"], words.bits),
-                   parent_row=i32(c["parent_row"]),
-                   parent_cellidx=i8(c["parent_cellidx"]))
+        out.update(topstone=dev(c["topstone"]),
+                   parent_row=dev(c["parent_row"]),
+                   parent_cellidx=steps_first(c["parent_cellidx"]))
     else:
-        out.update(newbit=_word_array(c["newbit"], words.bits),
-                   valid=torch.from_numpy(
-                       np.ascontiguousarray(c["valid"].astype(np.uint8))),
-                   move_row=i32(c["move_row"]),
-                   move_fill=i32(c["move_fill"]),
-                   child_cellidx=i8(c["child_cellidx"]))
-    return {k: v.to(device) for k, v in out.items()}
+        out.update(newbit=dev(c["newbit"]),
+                   valid=dev(c["valid"], torch.bool),
+                   move_row=dev(c["move_row"]),
+                   move_fill=dev(c["move_fill"]),
+                   child_cellidx=steps_first(c["child_cellidx"]))
+    return out
+
+
+class PackLayout(NamedTuple):
+    """Where a pack's parts lie, in int32 words: the binomial table
+    ([ncells+2, BINOM_STRIDE] rank words, a zero row first, so row k+1
+    holds C(k, .), columns past K zero) from 0, then the [P, stride] row
+    records from `rows` (filled's low and high words, the w heights, then
+    per column move_row and move_fill, or parent_row)."""
+
+    rows: int
+    stride: int
+
+    @property
+    def rec_bytes(self) -> int:
+        return self.stride * 4
+
+
+def pack_layout(geom: LevelGeom, for_reach: bool) -> PackLayout:
+    nb = (geom.ncells + 2) * BINOM_STRIDE * geom.words.rank // 32
+    return PackLayout(rows=nb + (nb & 1),
+                      stride=REC_HEIGHTS + (2 if for_reach else 3)
+                      * geom.width)
+
+
+def kernel_pack(tables, level: int, for_reach: bool,
+                words: Optional[Words] = None) -> np.ndarray:
+    """A level's kernel constants packed into one int32 array (host), laid
+    out as :class:`PackLayout` says, in the kernel's word width (`words`,
+    default the board's word_widths; a launch's geometry must carry the
+    same). One array per level and kind, so one host-to-device copy (the
+    solver keeps the copy on its device)."""
+    geom = level_geom(tables, level)
+    if words is not None:
+        geom = dataclasses.replace(geom, words=words)
+    lay = pack_layout(geom, for_reach)
+    c = tables.level_consts(level)
+    P, w = len(tables.profiles[level]), tables.width
+    rank_word = np.uint32 if geom.words.rank == 32 else np.uint64
+    binom = np.zeros((tables.ncells + 2, BINOM_STRIDE), rank_word)
+    binom[1:, :geom.K] = tables.binom.astype(rank_word)
+    rec = np.empty((P, lay.stride), np.int32)
+    filled = c["filled"].astype(np.uint64)
+    rec[:, 0] = (filled & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(
+        np.int32)
+    rec[:, 1] = (filled >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    rec[:, REC_HEIGHTS:REC_HEIGHTS + w] = tables.profiles[level]
+    if for_reach:
+        rec[:, REC_HEIGHTS + w:] = c["parent_row"]
+    else:
+        rec[:, REC_HEIGHTS + w:REC_HEIGHTS + 2 * w] = c["move_row"]
+        rec[:, REC_HEIGHTS + 2 * w:] = c["move_fill"]
+    out = np.zeros(lay.rows + P * lay.stride, np.int32)
+    out[:binom.size * binom.itemsize // 4] = binom.reshape(-1).view(np.int32)
+    out[lay.rows:] = rec.reshape(-1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -208,82 +264,173 @@ def kernel_consts(tables, level: int, for_reach: bool, device,
 
 
 @dataclass(frozen=True)
-class StepPlan:
-    """One launch: `grid` CTAs of THREADS threads, CTA b taking lanes
-    [b*RUN, min((b+1)*RUN, n)) of the [P, width] block; `smem` dynamic
-    shared bytes (the binomial table, then the cells' bit masks); `nwin`
-    windows of the gather source (the miss count's clip)."""
+class LaunchMap:
+    """The lanes of one launch: columns [lo, hi) of each of the level's
+    `nblk` rank blocks of `cblock` ranks ([P, size] lanes in all; a mesh
+    shard takes a slice, one device lo=0, hi=cblock). CTA i takes run
+    j = i % runs of block b = i // runs: lanes [j*RUN, min((j+1)*RUN,
+    P*width)) of the block's row-major [P, width] lanes, lane q at row
+    q // width and rank b*cblock + lo + q % width. Those runs are the
+    window gather's miss partition of the block; lanes whose rank is past
+    `size` are counted and never written."""
 
-    n: int
+    P: int
+    size: int
+    cblock: int
+    nblk: int
+    lo: int = 0
+    hi: Optional[int] = None
+    compact: bool = False
+
+    def __post_init__(self):
+        if self.hi is None:
+            object.__setattr__(self, "hi", self.cblock)
+        if not (0 <= self.lo <= self.hi <= self.cblock and self.P >= 1
+                and self.nblk * self.cblock >= self.size):
+            raise ValueError(f"bad launch map {self}")
+
+    @property
+    def width(self) -> int:
+        return self.hi - self.lo
+
+    @property
+    def nlanes(self) -> int:
+        """Lanes of one block's slice."""
+        return self.P * self.width
+
+    @property
+    def runs(self) -> int:
+        return -(-self.nlanes // RUN)
+
+    @property
+    def grid(self) -> int:
+        return self.nblk * self.runs
+
+    def block_ranks(self, b: int) -> Tuple[int, int]:
+        """Block b's slice as [rank0, rank0 + width)."""
+        rank0 = b * self.cblock + self.lo
+        return rank0, rank0 + self.width
+
+    def cta_lanes(self, i: int):
+        """CTA i's lanes, as the kernel takes them: (rows, ranks, pad)
+        int64 arrays, pad the replicas of the block's last index that its
+        ragged last run counts (0 elsewhere)."""
+        b, j = divmod(i, self.runs)
+        q = np.arange(j * RUN, min((j + 1) * RUN, self.nlanes),
+                      dtype=np.int64)
+        rows, cols = np.divmod(q, self.width)
+        pad = np.where(q == self.nlanes - 1, (j + 1) * RUN - self.nlanes, 0)
+        return rows, b * self.cblock + self.lo + cols, pad
+
+    @property
+    def out_cols(self) -> int:
+        """Columns of the launch's output: the level's [P, size] array,
+        or (compact, a mesh shard's) [P, nblk * width], block b's slice
+        from column b * width."""
+        return self.nblk * self.width if self.compact else self.size
+
+    @property
+    def out_step(self) -> int:
+        """Output columns from one block's slice to the next's."""
+        return self.width if self.compact else self.cblock
+
+    @property
+    def out_base(self) -> int:
+        """The output column of block 0's first lane."""
+        return 0 if self.compact else self.lo
+
+    def out_col(self, b: int) -> int:
+        """The output column of block b's first lane."""
+        return b * self.out_step + self.out_base
+
+    def columns(self) -> np.ndarray:
+        """[size] bool: the ranks this map's lanes cover."""
+        cover = np.zeros(self.nblk * self.cblock, bool).reshape(
+            self.nblk, self.cblock)
+        cover[:, self.lo:self.hi] = True
+        return cover.reshape(-1)[:self.size]
+
+
+class StepPlan(NamedTuple):
+    """One launch: `grid` CTAs of THREADS threads, `smem` dynamic shared
+    bytes (the binomial table, then the row record), `nwin` windows of the
+    gather source (the miss count's clip)."""
+
     grid: int
     smem: int
     nwin: int
 
 
-def step_plan(geom: LevelGeom, P: int, width: int, m: int) -> StepPlan:
-    """The launch arithmetic of either kernel over [P, width] lanes with a
-    gather source of m entries."""
-    n = P * width
-    binom_bytes = (geom.ncells + 1) * geom.K * geom.words.rank // 8
-    smem = -(-binom_bytes // 8) * 8 + geom.ncells * geom.words.bits // 8
-    return StepPlan(n=n, grid=-(-n // RUN), smem=smem,
+def step_plan(geom: LevelGeom, lmap: LaunchMap, m: int,
+              for_reach: bool) -> StepPlan:
+    """The launch arithmetic of either kernel over `lmap` with a gather
+    source of m entries."""
+    lay = pack_layout(geom, for_reach)
+
+    def up8(n):
+        return -(-n // 8) * 8
+
+    smem = (up8((geom.ncells + 2) * BINOM_STRIDE * geom.words.rank // 8)
+            + up8(lay.rec_bytes))
+    return StepPlan(grid=lmap.grid, smem=smem,
                     nwin=padded_table_len(m, WINDOW) // WINDOW)
 
 
-def launch_args(geom: LevelGeom, rank0: int, width: int, src, kc: dict,
-                out, counter, for_reach: bool) -> list:
+def launch_args(geom: LevelGeom, lmap: LaunchMap, src, pack, out,
+                counter, for_reach: bool) -> list:
     """The argument vector of one launch, in ARGS order."""
-    P = kc["cellidx"].shape[0]
-    plan = step_plan(geom, P, width, src.shape[0])
-    a = dict(P=P, width=width, rank0=int(rank0), n=plan.n, size=geom.size,
+    plan = step_plan(geom, lmap, src.shape[0], for_reach)
+    lay = pack_layout(geom, for_reach)
+    a = dict(P=lmap.P, size=lmap.size, cblock=lmap.cblock, lo=lmap.lo,
+             width=lmap.width, nblk=lmap.nblk, runs=lmap.runs,
              adj=geom.parent_size if for_reach else geom.child_size,
              m=src.shape[0], nwin=plan.nwin, w=geom.width, h=geom.height,
              connect=geom.connect, ncells=geom.ncells, n1=geom.n1,
-             K=geom.K, level=geom.level,
-             words=geom.words.code, grid=plan.grid, smem=plan.smem,
-             src=src.data_ptr(), out=out.data_ptr(),
-             counter=counter.data_ptr(), binom=kc["binom"].data_ptr(),
-             cellidx=kc["cellidx"].data_ptr(),
-             filled=kc["filled"].data_ptr())
-    if for_reach:
-        a.update(bits=kc["topstone"].data_ptr(), valid=0,
-                 row=kc["parent_row"].data_ptr(), fill=0,
-                 ccellidx=kc["parent_cellidx"].data_ptr())
-    else:
-        a.update(bits=kc["newbit"].data_ptr(), valid=kc["valid"].data_ptr(),
-                 row=kc["move_row"].data_ptr(),
-                 fill=kc["move_fill"].data_ptr(),
-                 ccellidx=kc["child_cellidx"].data_ptr())
+             K=geom.K, level=geom.level, words=geom.words.code,
+             grid=plan.grid, smem=plan.smem, ld=lmap.out_cols,
+             ostep=lmap.out_step, obase=lmap.out_base, src=src.data_ptr(),
+             out=out.data_ptr(), counter=counter.data_ptr(),
+             binom=pack.data_ptr(),
+             rows=pack.data_ptr() + 4 * lay.rows)
     return [a[k] for k in ARGS]
 
 
-def _launch(name: str, geom: LevelGeom, rank0: int, width: int, src,
-            consts: dict, for_reach: bool):
-    """Launch kernel `name` -> (out [P, width] u8, int64 counter)."""
+def _launch(name: str, geom: LevelGeom, lmap: LaunchMap, src,
+            consts: dict, out, for_reach: bool):
+    """Launch kernel `name` over `lmap`, writing into out [P,
+    lmap.out_cols] -> the int64 counter (misses or reached lanes)."""
     from gamesmanmpi_tpu_torch.kernels import build
 
-    kc = consts.get("kernel")
-    if kc is None:
-        raise ValueError(f"{name}: consts carry no kernel layout (build "
-                         "them with kernel_consts on the tensor's device)")
+    pack = consts.get("pack")
+    if pack is None:
+        raise ValueError(f"{name}: consts carry no kernel pack (build them "
+                         "with kernel_pack on the tensor's device)")
     if geom.width > MAX_COLS or geom.ncells > MAX_CELLS:
         raise ValueError(f"{name}: {geom.width} columns, {geom.ncells} "
                          f"cells; the kernel takes at most {MAX_COLS}, "
                          f"{MAX_CELLS}")
+    if (out.dtype != torch.uint8
+            or tuple(out.shape) != (lmap.P, lmap.out_cols)
+            or not out.is_contiguous() or out.device != src.device
+            or pack.device != src.device or pack.dtype != torch.int32):
+        raise ValueError(f"{name}: out must be a contiguous uint8 "
+                         f"[{lmap.P}, {lmap.out_cols}] and the pack int32, "
+                         f"on {src.device}")
+    if lmap.nlanes >= 1 << 31:
+        raise ValueError(f"{name}: {lmap.nlanes} lanes per block; the "
+                         "kernel takes under 2^31")
     src = src.contiguous()
-    P = kc["cellidx"].shape[0]
-    out = torch.empty((P, width), dtype=torch.uint8, device=src.device)
     counter = torch.zeros((), dtype=torch.int64, device=src.device)
-    if P * width == 0:
-        return out, counter
-    args = launch_args(geom, rank0, width, src, kc, out, counter, for_reach)
+    if lmap.grid == 0:
+        return counter
+    args = launch_args(geom, lmap, src, pack, out, counter, for_reach)
     vec = (ctypes.c_longlong * len(args))(*args)
     lib = build.load("dense_level")
     stream = torch.cuda.current_stream(src.device).cuda_stream
     code = getattr(lib, f"{name}_launch")(vec, len(args), stream)
     build.check(name, code)
     kernels.LAUNCHES[name] += 1
-    return out, counter
+    return counter
 
 
 # ---------------------------------------------------------------------------
@@ -484,98 +631,253 @@ def reach_step_ref(geom: LevelGeom, rank0: int, width: int, parent_reach,
     return reach.to(torch.uint8), count
 
 
+def _in_range(lmap: LaunchMap, b: int) -> int:
+    """Lanes per row of block b's slice whose rank is below size."""
+    rank0, end = lmap.block_ranks(b)
+    return max(min(end, lmap.size) - rank0, 0)
+
+
+def _level_blocks(lmap: LaunchMap, step, out) -> Optional[torch.Tensor]:
+    """Run a block step over each of `lmap`'s rank blocks, writing the
+    in-range lanes into out [P, lmap.out_cols] -> the steps' second
+    outputs summed (or None)."""
+    total = None
+    for b in range(lmap.nblk):
+        cells, extra = step(lmap.block_ranks(b)[0], lmap.width)
+        n, c0 = _in_range(lmap, b), lmap.out_col(b)
+        out[:, c0:c0 + n] = cells[:, :n]
+        if extra is not None:
+            total = extra if total is None else total + extra
+    return total
+
+
+def merge_shard(lmap: LaunchMap, part, out):
+    """Copy a compact launch's output, part [P, nblk * width] (one
+    transfer to out's device), into the level's out [P, size]: each
+    block's in-range lanes to their ranks."""
+    part = part.to(out.device)
+    for b in range(lmap.nblk):
+        n, c0 = _in_range(lmap, b), lmap.out_col(b)
+        rank0 = lmap.block_ranks(b)[0]
+        out[:, rank0:rank0 + n] = part[:, c0:c0 + n]
+
+
+def dense_level_ref(geom: LevelGeom, lmap: LaunchMap, child_flat,
+                    consts: dict, binom, out, gather_mode: str = "window"):
+    """Plain version of one backward launch: dense_step_ref over each rank
+    block of `lmap`, the in-range lanes written into out [P,
+    lmap.out_cols] -> nmiss summed over the blocks (window mode below the
+    top), else None."""
+    return _level_blocks(lmap, lambda rank0, width: dense_step_ref(
+        geom, rank0, width, child_flat, consts, binom, gather_mode), out)
+
+
+def reach_level_ref(geom: LevelGeom, lmap: LaunchMap, parent_reach,
+                    consts: dict, binom, out):
+    """Plain version of one reach launch: reach_step_ref over each rank
+    block of `lmap`, the in-range lanes written into out [P,
+    lmap.out_cols] -> the reached lanes counted."""
+    return _level_blocks(lmap, lambda rank0, width: reach_step_ref(
+        geom, rank0, width, parent_reach, consts, binom), out)
+
+
 # ---------------------------------------------------------------------------
 # The wrappers
 
 
-def dense_step(geom: LevelGeom, rank0: int, width: int, child_flat,
-               consts: dict, binom):
-    """The backward step in window mode over lanes [rank0, rank0+width):
-    (cells [P, width] u8, nmiss int64 scalar tensor, or None at the top
-    level). Cells are exact on in-range lanes (rank < C); pad lanes are
-    left 0 by the kernel.
+def dense_step(geom: LevelGeom, lmap: LaunchMap, child_flat, consts: dict,
+               binom, out):
+    """The backward step in window mode over the lanes of `lmap`: writes
+    their in-range lanes into out [P, lmap.out_cols] (u8) -> nmiss (int64
+    scalar tensor), or None at the top level.
 
-    On a CUDA tensor this launches the CUDA kernel (consts must carry the
-    kernel layout under "kernel"; the launch is counted in
-    kernels.LAUNCHES); on a CPU tensor it is the plain version.
+    On a CUDA tensor this is one launch of the CUDA kernel (consts must
+    carry the kernel pack under "pack"; the launch is counted in
+    kernels.LAUNCHES); on a CPU tensor the plain version (consts the
+    eager layout, binom the int64 table).
     """
     if child_flat.device.type == "cpu":
-        return dense_step_ref(geom, rank0, width, child_flat, consts, binom,
-                              "window")
+        return dense_level_ref(geom, lmap, child_flat, consts, binom, out)
     if child_flat.device.type != "cuda":
         raise RuntimeError(f"no dense_step kernel for {child_flat.device}")
-    cells, nmiss = _launch("dense_step", geom, rank0, width, child_flat,
-                           consts, for_reach=False)
-    return cells, (None if geom.is_top else nmiss)
+    nmiss = _launch("dense_step", geom, lmap, child_flat, consts, out,
+                    for_reach=False)
+    return None if geom.is_top else nmiss
 
 
-def reach_step(geom: LevelGeom, rank0: int, width: int, parent_reach,
-               consts: dict, binom):
-    """The reachability step over lanes [rank0, rank0+width): (reach
-    [P, width] u8, count of in-range reached lanes, int64 scalar tensor).
-    Reach is exact on in-range lanes; pad lanes are left 0 by the kernel.
+def reach_step(geom: LevelGeom, lmap: LaunchMap, parent_reach,
+               consts: dict, binom, out):
+    """The reachability step over the lanes of `lmap`: writes their
+    in-range lanes into out [P, lmap.out_cols] (u8) -> the count of
+    reached lanes (int64 scalar tensor).
 
-    On a CUDA tensor this launches the CUDA kernel (counted in
-    kernels.LAUNCHES); on a CPU tensor it is the plain version.
+    On a CUDA tensor this is one launch of the CUDA kernel (counted in
+    kernels.LAUNCHES); on a CPU tensor the plain version.
     """
     if parent_reach.device.type == "cpu":
-        return reach_step_ref(geom, rank0, width, parent_reach, consts,
-                              binom)
+        return reach_level_ref(geom, lmap, parent_reach, consts, binom, out)
     if parent_reach.device.type != "cuda":
         raise RuntimeError(f"no reach_step kernel for {parent_reach.device}")
-    return _launch("reach_step", geom, rank0, width, parent_reach, consts,
+    return _launch("reach_step", geom, lmap, parent_reach, consts, out,
                    for_reach=True)
+
+
+# ---------------------------------------------------------------------------
+# A host model of the kernels' walk
+
+
+class FusedWalk(NamedTuple):
+    """What the walk gives per lane: the player-1 guard-layout bitboard,
+    every valid move's child rank and every non-empty column's parent
+    rank (0 elsewhere) and whether that column's top stone is player
+    1's."""
+
+    p1: np.ndarray       # [n] uint64
+    child: np.ndarray    # [n, w] rank words
+    parent: np.ndarray   # [n, w] rank words
+    top_p1: np.ndarray   # [n, w] bool
+
+
+def fused_walk(geom: LevelGeom, heights: np.ndarray, ranks: np.ndarray,
+               rank_word=None) -> FusedWalk:
+    """The kernels' descending walk, in numpy over lanes: `heights` [n, w]
+    each lane's column heights, `ranks` [n] its in-range rank; the
+    arithmetic in `rank_word` (default the geometry's rank word), wrapping
+    as the kernel's unsigned words would. Used by the tests, not by any
+    solve path.
+
+    Walking the class indices k = L-1 .. 0 (columns w-1 .. 0, each top
+    down) with r the rank left and rem the stones left, the cell at k is a
+    stone when C(k, rem) <= r (then r -= C(k, rem), rem -= 1), and a stone
+    at k with ordinal rem adds C(k+1, rem + [p1 moves]) to the child
+    suffix S and C(k-1, rem - [p1 moved]) to the parent suffix Sp. A child
+    inserts the cell t_c = col_base[c] + h_c: child(c) = r + S +
+    [p1 moves] C(t_c, rem + 1), taken before column c's cells. A parent
+    removes column c's top cell t_c - 1: parent(c) = r after that cell +
+    Sp before it.
+    """
+    w, h, L = geom.width, geom.height, geom.level
+    word = rank_word or (np.uint32 if geom.words.rank == 32 else np.uint64)
+    heights = np.asarray(heights, np.int64).reshape(-1, w)
+    n = heights.shape[0]
+    table = np.zeros((geom.ncells + 2, geom.K), np.uint64)
+    for k in range(geom.ncells + 1):
+        for i in range(min(k, geom.K - 1) + 1):
+            table[k + 1, i] = math.comb(k, i)
+    table = table.astype(word)  # row k+1: C(k, .); row 0: C(-1, .) = 0
+    sh = 1 if L % 2 == 0 else 0   # p1 moves out of this level
+    shp = 1 - sh                  # p1 made the ply into it
+    r = np.asarray(ranks).astype(word)
+    s = np.zeros(n, word)
+    sp = np.zeros(n, word)
+    p1 = np.zeros(n, np.uint64)
+    rem = np.full(n, geom.n1, np.int64)
+    k = np.full(n, L, np.int64)  # cells left to walk
+    child = np.zeros((n, w), word)
+    parent = np.zeros((n, w), word)
+    top_p1 = np.zeros((n, w), bool)
+    for c in range(w - 1, -1, -1):
+        hc = heights[:, c]
+        snap = r + s
+        if sh:
+            snap = snap + table[k + 1, rem + 1]
+        child[:, c] = np.where(hc < h, snap, 0)
+        above = sp.copy()
+        for row in range(h - 1, -1, -1):
+            live = row < hc
+            k = k - live
+            kk = np.where(live, k, 0)
+            ck = table[kk + 1, rem]
+            take = live & (ck <= r)
+            r = r - np.where(take, ck, 0).astype(word)
+            s = s + np.where(take, table[kk + 2, np.minimum(
+                rem + sh, geom.K - 1)], 0).astype(word)
+            sp = sp + np.where(take, table[kk, np.maximum(rem - shp, 0)],
+                               0).astype(word)
+            p1 |= np.where(take, np.uint64(1) << np.uint64(c * (h + 1) + row),
+                           np.uint64(0))
+            rem = rem - take
+            at_top = live & (row == hc - 1)
+            top_p1[:, c] |= at_top & take
+            parent[:, c] = np.where(at_top, r + above, parent[:, c])
+    return FusedWalk(p1, child, parent, top_p1)
 
 
 # ---------------------------------------------------------------------------
 # The work a launch must do (its bound)
 
 
-def step_work(geom: LevelGeom, P: int, width: int, m: int, lanes: int,
-              followed: int, for_reach: bool) -> Tuple[int, int]:
-    """(bytes, integer operations) that one launch over [P, width] lanes
-    must do at the least: `lanes` in-range lanes, `followed` (lane,
-    column) pairs whose child (parent) the step must rank.
+class Work(NamedTuple):
+    """The data-dependent counts of a launch: in-range lanes, followed
+    (lane, column) pairs (each child or parent ranked and gathered) and
+    the win folds the lanes must take."""
 
-    Bytes: each output byte written once, each source byte read once (at
-    most m, at most one per followed pair), the constants read once.
-    Operations: per in-range lane the unrank walk, 3 per cell (compare,
-    subtract, or), and (backward step) both win folds; per followed pair
-    the rank walk, 2 per cell (test, add), 4 for the flat index and its
-    load and 4 for the combine's share, and (reach step) the parent's
-    fold. A fold is 2 per shift (shift, and) and 1 per direction.
+    lanes: int
+    pairs: int
+    folds: int
+
+
+#: Integer operations of the least work: per class index of the level
+#: (the compare against the rank left), per stone (subtract its term, set
+#: its bit, add its shifted term), per followed pair (the snapshot's two
+#: adds, the flat index, its load and the combine's share).
+OPS_PER_INDEX = 1
+OPS_PER_STONE = 3
+OPS_PER_PAIR = 10
+
+
+def fold_ops(geom: LevelGeom) -> int:
+    """One win fold at its least work: per direction, `connect` in a row
+    by doubling (x &= x >> (s*d), the run s doubling up to `connect`):
+    ceil(log2 connect) shift-and pairs, then one test."""
+    return 4 * (2 * (geom.connect - 1).bit_length() + 1)
+
+
+def step_work(geom: LevelGeom, m: int, work: Work, pack_bytes: int
+              ) -> Tuple[int, int]:
+    """(bytes, integer operations) that one launch must do at the least.
+
+    Bytes: each in-range output byte written once, each source byte read
+    once (at most m, at most one per followed pair), the packed constants
+    read once. Operations: per in-range lane the walk over the level's
+    class indices and its stones (OPS_PER_INDEX, OPS_PER_STONE), per
+    followed pair OPS_PER_PAIR, and the folds (fold_ops each).
     """
-    nc, w = geom.ncells, geom.width
-    fold = 4 * (2 * (geom.connect - 1) + 1)
-    per_lane = 3 * nc + (0 if for_reach else 2 * fold)
-    per_pair = 2 * nc + 8 + (fold if for_reach else 0)
-    ops = lanes * per_lane + followed * per_pair
-    nbytes = (P * width + min(m, followed)
-              + P * (nc + w * (nc + 13)) + (nc + 1) * (nc + 5) * 8)
+    per_lane = OPS_PER_INDEX * geom.level + OPS_PER_STONE * geom.n1
+    ops = (work.lanes * per_lane + work.pairs * OPS_PER_PAIR
+           + work.folds * fold_ops(geom))
+    nbytes = work.lanes + min(m, work.pairs) + pack_bytes
     return nbytes, ops
 
 
-def dense_followed(geom: LevelGeom, rank0: int, width: int,
-                   consts: dict) -> Tuple[int, int]:
-    """(in-range lanes, followed pairs) of a backward launch: every valid
-    move of every in-range lane is ranked and gathered (the combine needs
-    each child, the miss count each index)."""
-    lanes = max(0, min(width, geom.size - rank0))
-    return lanes * consts["filled"].shape[0], lanes * int(
-        consts["valid"].sum())
+def dense_followed(geom: LevelGeom, lmap: LaunchMap, consts: dict) -> Work:
+    """The work of a backward launch: every valid move of every in-range
+    lane is ranked and gathered (the combine needs each child, the miss
+    count each index), and each lane folds both players' stones."""
+    cols = int(lmap.columns().sum())
+    pairs = 0 if geom.is_top else cols * int(consts["valid"].sum())
+    return Work(lanes=cols * lmap.P, pairs=pairs, folds=2 * cols * lmap.P)
 
 
-def reach_followed(geom: LevelGeom, rank0: int, width: int, consts: dict,
-                   binom, parent_reach) -> Tuple[int, int]:
-    """(in-range lanes, followed pairs) of a reach launch on this data:
-    per in-range lane, the columns whose top stone is the last mover's,
-    up to and including the first that reaches (the OR needs no more)."""
-    in_range, cols = _reach_columns(geom, rank0, width, parent_reach,
-                                    consts, binom)
-    lanes = in_range.expand(consts["filled"].shape[0], width)
-    done = ~lanes
-    followed = 0
-    for ok, hit in cols:
-        followed += int((ok & ~done).sum())
-        done |= hit
-    return int(lanes.sum()), followed
+def reach_followed(geom: LevelGeom, lmap: LaunchMap, consts: dict, binom,
+                   parent_reach) -> Work:
+    """The work of a reach launch on this data: per in-range lane the
+    columns whose top stone is the last mover's, up to and including the
+    first that reaches (the OR needs no more), and one fold (the
+    parents' last mover, the same player for every column) where the lane
+    follows any column."""
+    lanes = pairs = folds = 0
+    for b in range(lmap.nblk):
+        rank0, _ = lmap.block_ranks(b)
+        in_range, cols = _reach_columns(geom, rank0, lmap.width,
+                                        parent_reach, consts, binom)
+        live = in_range.expand(consts["filled"].shape[0], lmap.width)
+        done = ~live
+        any_ok = torch.zeros_like(live)
+        for ok, hit in cols:
+            pairs += int((ok & ~done).sum())
+            any_ok |= ok & live
+            done |= hit
+        lanes += int(live.sum())
+        folds += int(any_ok.sum())
+    return Work(lanes=lanes, pairs=pairs, folds=folds)

@@ -13,18 +13,24 @@ Positions are indexed perfectly instead of discovered:
 - The solve is one backward sweep over levels. Per level: unrank ->
   win folds -> per-move child rank -> gather of the child's packed cell
   -> negamax combine (ops/combine.py's rules), one kernel launch per
-  rank block.
+  level on the card (per shard on a mesh), one plain step per rank
+  block elsewhere.
 - Reachable positions (Tromp's counts) come from a separate forward
   **reachability sweep** with "unmove" tables, cached per board per
   process and across processes in the counts file (below).
 
 Each level step is one hand-written CUDA kernel on the card
-(ops/dense_level.py, kernels/csrc/dense_level.cu), one thread per lane:
-``dense_step`` unranks, folds, ranks every child, gathers its packed cell
-and combines, in the reference's narrowed words (uint32 at 5x5; 64-bit
-where a board needs them); ``reach_step`` does the reach sweep's OR over
-columns and counts. On the CPU each step is its plain version: eager
-int64 torch ops, the reference's fori_loop walks written out. With
+(ops/dense_level.py, kernels/csrc/dense_level.cu), one thread per lane,
+launched once per level over all its rank blocks and writing straight
+into the level's [P, C] array: ``dense_step`` unranks and ranks every
+child in one descending walk over the level's class indices, folds,
+gathers each child's packed cell and combines, in the reference's
+narrowed words (uint32 at 5x5; 64-bit where a board needs them);
+``reach_step`` ranks every parent in the same walk, does the reach
+sweep's OR over columns and counts. Each level's kernel constants go up
+as one packed array from pinned memory. On the CPU each step is its
+plain version, rank block by rank block: eager int64 torch ops, the
+reference's fori_loop walks written out. With
 ``gather_mode="window"`` (the default) invalid rows and pad lanes get a
 monotone fill so each move's flat child index vector is non-decreasing,
 and the backward step counts the window gather's misses over exactly the
@@ -38,10 +44,10 @@ unset or ``pallas`` is window, ``plain`` and ``sorted`` themselves.
 
 The plain steps hold bitboards, ranks and flat indices in int64 and
 cells in uint8 (core/bitops.py); the kernels the reference's words. The
-reference's TPU-only machinery is not carried over: the one-hot binomial
-select tree (both routes index the [ncells+1, K] table directly), the
-one-walk child ranking ``_rank_all_moves_fused`` (a lowering choice with
-identical results; the kernel ranks each child by its own walk), the relay
+reference's one-walk child ranking ``_rank_all_moves_fused`` is the
+kernels' walk, taken downward (so every partial sum is part of the final
+rank); its TPU-only machinery is not carried over: the one-hot binomial
+select tree (both routes index the binomial table directly), the relay
 run-ahead drain, background compiles.
 
 **The counts file** (``GAMESMAN_DENSE_COUNTS_FILE``; default
@@ -66,8 +72,9 @@ exactly the lanes it sees at ``devices=1``, so the cells and the summed
 ``nmiss`` equal the one-device run's. (The reference instead rounds
 cblock up to ``lcm(devices, PALLAS_BLOCK)`` and lets SPMD partition it;
 its Pallas gather falls back to the plain one there, unproven under
-auto-SPMD. Here each shard launches the kernel itself on its own slice,
-so there is nothing to fall back from.)
+auto-SPMD. Here each shard launches the kernel itself, once per level
+over its slices of every rank block, into the level's array on its
+device, so there is nothing to fall back from.)
 Single-controller, as in the reference: the mesh spans one process.
 
 Checkpoint/resume (``checkpointer=``), as in the reference: the directory
@@ -113,11 +120,6 @@ from gamesmanmpi_tpu_torch.ops.dense_level import (  # noqa: F401 (re-export)
     _connected_fold,
     _rank_bits,
     _unrank_bits,
-)
-# The standalone window gather, re-exported under the name
-# tools/torch_dense_profile.py records through; the steps no longer call it.
-from gamesmanmpi_tpu_torch.ops.window_gather import (  # noqa: F401
-    monotone_window_gather,
 )
 from gamesmanmpi_tpu_torch.solve.engine import record_solve, watched
 from gamesmanmpi_tpu_torch.utils.device import resolve_device
@@ -414,52 +416,6 @@ WINDOW_BLOCK = dense_level.RUN
 WINDOW_ELEMS = dense_level.WINDOW
 
 
-def build_dense_step(tables: DenseTables, level: int, cblock: int,
-                     gather_mode: str = "window"):
-    """The backward step for one level at one block width.
-
-    Returned fn: (rank0 int, child_flat [flat] uint8 (dummy at the top
-    level), consts dict of level tensors, binom [ncells+1, K] int64)
-      -> (cells [P, cblock] uint8, nmiss int64 tensor or None)
-
-    gather_mode "window" is ops/dense_level.dense_step: the CUDA kernel on
-    the card, its plain version (the monotone-filled flat index through
-    the window gather's plain version, nmiss counted) on the CPU. "sorted"
-    (the same fill, a clamped torch index) and "plain" (the clamped
-    unfilled index) run the plain version on any device, nmiss None. All
-    give identical cells on in-range lanes.
-    """
-    geom = dense_level.level_geom(tables, level)
-
-    def step(rank0, child_flat, consts, binom):
-        if gather_mode == "window":
-            return dense_level.dense_step(geom, rank0, cblock, child_flat,
-                                          consts, binom)
-        cells, _ = dense_level.dense_step_ref(geom, rank0, cblock,
-                                              child_flat, consts, binom,
-                                              gather_mode)
-        return cells, None
-
-    return step
-
-
-def build_reach_step(tables: DenseTables, level: int, cblock: int):
-    """The reachability-sweep step for one level (level >= 1):
-    ops/dense_level.reach_step, the CUDA kernel on the card and its plain
-    version on the CPU.
-
-    Returned fn: (rank0 int, parent_reach [flat] uint8, consts, binom)
-      -> (reach [P, cblock] uint8, count int64 tensor)
-    """
-    geom = dense_level.level_geom(tables, level)
-
-    def step(rank0, parent_reach, consts, binom):
-        return dense_level.reach_step(geom, rank0, cblock, parent_reach,
-                                      consts, binom)
-
-    return step
-
-
 # ---------------------------------------------------------------------------
 
 
@@ -707,6 +663,8 @@ class DenseSolver:
         else:
             self._mesh = None
             self._shard_devices = [self.device]
+        if self.device.type == "cuda":
+            torch.cuda.init()  # the allocator, for its peak statistics
         self.tables = tables_for(game.width, game.height, game.connect)
         self.block_elems = int(block_elems or DEFAULT_BLOCK_ELEMS)
         self._consts: dict = {}
@@ -714,7 +672,6 @@ class DenseSolver:
         #: where reachable_counts took the counts from: "sweep", "file"
         #: or "process" (None before it ran)
         self.reach_counts_source: Optional[str] = None
-        self._binom = self._binom_on(self.device)
 
     @property
     def _board_key(self):
@@ -744,12 +701,18 @@ class DenseSolver:
         return cblock, -(-C // cblock)
 
     def _binom_on(self, device) -> torch.Tensor:
-        """The [ncells+1, K] int64 binomial table on `device` (cached)."""
+        """The [ncells+1, K] int64 binomial table on `device` (cached):
+        the plain steps' (the kernels carry theirs in each level's
+        pack)."""
         key = str(device)
         if key not in self._binoms:
             self._binoms[key] = torch.as_tensor(
                 self.tables.binom.astype(np.int64), device=device)
         return self._binoms[key]
+
+    @property
+    def _binom(self) -> torch.Tensor:
+        return self._binom_on(self.device)
 
     def _lane_slices(self, cblock: int, window: bool) -> list:
         """Each shard's [lo, hi) lanes of a cblock-wide rank block: whole
@@ -782,80 +745,89 @@ class DenseSolver:
 
     def _level_tensors(self, level: int, for_reach: bool,
                        device=None) -> dict:
-        """Per-level constants on `device` (default the solver's), cached
-        on the solver: the plain steps' layout (steps first, int64) and, on
-        a CUDA device, the kernels' layout under "kernel"
-        (ops/dense_level.kernel_consts)."""
+        """Per-level constants in the plain steps' layout (steps first,
+        int64; ops/dense_level.eager_consts) on `device` (default the
+        solver's), cached on the solver."""
         device = self.device if device is None else torch.device(device)
         key = (level, for_reach, str(device))
-        if key in self._consts:
-            return self._consts[key]
-        c = self.tables.level_consts(level)
+        if key not in self._consts:
+            self._consts[key] = dense_level.eager_consts(
+                self.tables, level, for_reach, device)
+        return self._consts[key]
 
-        def dev(a, dtype=torch.int64):
-            return torch.as_tensor(
-                np.ascontiguousarray(a.astype(np.int64)), device=device
-            ).to(dtype)
+    def _kernel_consts(self, level: int, for_reach: bool, device) -> dict:
+        """A level's kernel pack (ops/dense_level.kernel_pack) on the CUDA
+        `device`, cached on the solver: one host-to-device copy from
+        pinned memory."""
+        device = torch.device(device)
+        key = ("pack", level, for_reach, str(device))
+        if key not in self._consts:
+            host = torch.from_numpy(dense_level.kernel_pack(
+                self.tables, level, for_reach)).pin_memory()
+            self._consts[key] = {"pack": host.to(device, non_blocking=True)}
+        return self._consts[key]
 
-        def steps_first(a):  # [P, ..., ncells] -> [ncells, P, ...]
-            return dev(np.moveaxis(a, -1, 0))
+    # -- the level steps ----------------------------------------------------
 
-        out = dict(cellidx=steps_first(c["cellidx"]), filled=dev(c["filled"]))
-        if for_reach:
-            out.update(
-                topstone=dev(c["topstone"]),
-                parent_row=dev(c["parent_row"]),
-                parent_cellidx=steps_first(c["parent_cellidx"]),
-            )
-        else:
-            out.update(
-                newbit=dev(c["newbit"]),
-                valid=dev(c["valid"], torch.bool),
-                move_row=dev(c["move_row"]),
-                move_fill=dev(c["move_fill"]),
-                child_cellidx=steps_first(c["child_cellidx"]),
-            )
-        if device.type == "cuda":
-            out["kernel"] = dense_level.kernel_consts(self.tables, level,
-                                                      for_reach, device)
-        self._consts[key] = out
-        return out
-
-    # -- reachability sweep -------------------------------------------------
-
-    def _run_level(self, L: int, builder, for_reach: bool, window: bool,
-                   other):
-        """One level's steps over its rank blocks and, on a mesh, each
-        block's lane slices shard by shard. `other`: the adjacent level's
-        flat array on every shard's device (the step's gather source).
-        -> ([P, C] level array on the home device, the per-step second
-        outputs summed on it: the reach count or the gather misses)."""
+    def _launch_maps(self, L: int, for_reach: bool) -> list:
+        """[(shard, ops/dense_level.LaunchMap)]: the lanes each shard's
+        step takes at level L, one launch each on the card: every rank
+        block whole on one device, writing the level's array in place;
+        on a mesh each shard's lane slice of every block, into a compact
+        output of its own (shards whose slice is empty take none)."""
         t = self.tables
-        C = t.class_size[L]
+        P, C = len(t.profiles[L]), t.class_size[L]
         cblock, nblk = self._cblock(L)
+        window = not for_reach and self.gather_mode == "window"
         slices = ([(0, cblock)] if self._mesh is None
                   else self._lane_slices(cblock, window))
-        steps: dict = {}
-        blocks, total = [], None
-        for b in range(nblk):
-            parts = []
-            for (lo, hi), dev, src in zip(slices, self._shard_devices, other):
-                if hi == lo:
-                    continue
-                step = steps.get(hi - lo)
-                if step is None:
-                    step = steps[hi - lo] = builder(t, L, hi - lo)
-                out, extra = step(b * cblock + lo, src,
-                                  self._level_tensors(L, for_reach, dev),
-                                  self._binom_on(dev))
-                parts.append(out.to(self.device))
-                if extra is not None:
-                    extra = extra.to(self.device)
-                    total = extra if total is None else total + extra
-            blocks.append(parts[0] if len(parts) == 1
-                          else torch.cat(parts, dim=1))
-        cells = blocks[0] if nblk == 1 else torch.cat(blocks, dim=1)
-        return cells[:, :C].contiguous(), total
+        return [(i, dense_level.LaunchMap(P, C, cblock, nblk, lo, hi,
+                                          compact=self._mesh is not None))
+                for i, (lo, hi) in enumerate(slices) if hi > lo]
+
+    def _run_level(self, L: int, for_reach: bool, other):
+        """One level's step over its rank blocks and, on a mesh, each
+        block's lane slices shard by shard: on the card one kernel launch
+        per shard over its slices of every block (the backward's plain
+        modes: a plain step per block). One device writes the level's
+        [P, C] array in place; a mesh shard writes its lanes compact on
+        its device, and only those cross to the home device. `other`: the
+        adjacent level's flat array on every shard's device (the step's
+        gather source). -> ([P, C] level array on the home device, the
+        steps' second outputs summed on it: the reach count or the gather
+        misses, or None)."""
+        t = self.tables
+        P, C = len(t.profiles[L]), t.class_size[L]
+        mode = "window" if for_reach else self.gather_mode
+        geom = dense_level.level_geom(t, L)
+        out = torch.empty((P, C), dtype=torch.uint8, device=self.device)
+        total, shards = None, []
+        for i, lmap in self._launch_maps(L, for_reach):
+            src = other[i]
+            dev = src.device
+            target = out if not lmap.compact else torch.empty(
+                (P, lmap.out_cols), dtype=torch.uint8, device=dev)
+            if mode != "window":
+                extra = dense_level.dense_level_ref(
+                    geom, lmap, src, self._level_tensors(L, False, dev),
+                    self._binom_on(dev), target, mode)
+            else:
+                consts = (self._kernel_consts(L, for_reach, dev)
+                          if dev.type == "cuda"
+                          else self._level_tensors(L, for_reach, dev))
+                step = (dense_level.reach_step if for_reach
+                        else dense_level.dense_step)
+                extra = step(geom, lmap, src, consts,
+                             None if dev.type == "cuda"
+                             else self._binom_on(dev), target)
+            if target is not out:
+                shards.append((lmap, target))
+            if extra is not None:
+                extra = extra.to(self.device)
+                total = extra if total is None else total + extra
+        for lmap, target in shards:
+            dense_level.merge_shard(lmap, target, out)
+        return out, total
 
     def _sweep_levels(self, last_level: int):
         """The reach sweep 1..last_level -> (counts {0..last_level},
@@ -865,8 +837,8 @@ class DenseSolver:
         reach = torch.ones((1,), dtype=torch.uint8, device=self.device)
         counts_dev: Dict[int, torch.Tensor] = {}
         for L in range(1, last_level + 1):
-            level_reach, cnt = self._run_level(
-                L, build_reach_step, True, False, self._replicate(reach))
+            level_reach, cnt = self._run_level(L, True,
+                                               self._replicate(reach))
             reach = level_reach.reshape(-1)
             counts_dev[L] = cnt
         counts = {0: 1}
@@ -896,13 +868,7 @@ class DenseSolver:
         """One backward level: the deeper level's flat cells -> this
         level's [P, C] cells, plus the gather misses summed over the
         shards (a tensor or None)."""
-        mode = self.gather_mode
-
-        def builder(t, level, width):
-            return build_dense_step(t, level, width, mode)
-
-        return self._run_level(L, builder, False, mode == "window",
-                               self._replicate(child_flat))
+        return self._run_level(L, False, self._replicate(child_flat))
 
     # -- the solve ----------------------------------------------------------
 

@@ -118,28 +118,80 @@ def test_word_widths_match_reference_dtypes(board, monkeypatch):
 # ------------------------------------------------------ the kernel layout
 
 
+def _unpack(geom, pack: np.ndarray, for_reach: bool) -> dict:
+    """A pack's fields under level_consts' names (and ``binom``, the
+    [ncells+1, K] table, and ``heights``), decoded the way the kernel
+    reads them: valid, newbit and topstone from the heights, and the class
+    indexing its walk follows (``cellidx``: col_base[c] + r for a filled
+    cell (c, r), else -1; ``snapk``: each valid move's insertion slot
+    col_base[c] + h_c at the move's new cell, else -1)."""
+    lay = dense_level.pack_layout(geom, for_reach)
+    w, h = geom.width, geom.height
+    stride, r0 = dense_level.BINOM_STRIDE, dense_level.REC_HEIGHTS
+    rank_word = np.uint32 if geom.words.rank == 32 else np.uint64
+    bits_word = np.uint32 if geom.words.bits == 32 else np.uint64
+    nb = (geom.ncells + 2) * stride
+    binom = pack[:nb * np.dtype(rank_word).itemsize // 4].view(
+        rank_word).reshape(geom.ncells + 2, stride)[:, :geom.K]
+    rec = pack[lay.rows:].reshape(-1, lay.stride)
+    filled = (rec[:, 0].view(np.uint32).astype(np.uint64)
+              | rec[:, 1].view(np.uint32).astype(np.uint64) << np.uint64(32))
+    hts = rec[:, r0:r0 + w].astype(np.int64)
+    col = np.arange(w, dtype=np.int64) * (h + 1)
+    base = np.cumsum(hts, axis=1) - hts
+    r = np.arange(h, dtype=np.int64)
+    idx = base[:, :, None] + r  # [P, w, h]: cell (c, r) is j = c*h + r
+    cellidx = np.where(r < hts[:, :, None], idx, -1).reshape(-1, w * h)
+    snapk = np.where(r == hts[:, :, None], idx, -1).reshape(-1, w * h)
+    out = dict(binom=binom[1:], filled=filled.astype(bits_word),
+               heights=hts, cellidx=cellidx, snapk=snapk)
+    if for_reach:
+        top = np.uint64(1) << np.maximum(col + hts - 1, 0).astype(np.uint64)
+        out.update(topstone=np.where(hts > 0, top, 0).astype(bits_word),
+                   parent_row=rec[:, r0 + w:])
+    else:
+        valid = hts < h
+        new = np.uint64(1) << (col + hts).astype(np.uint64)
+        out.update(valid=valid,
+                   newbit=np.where(valid, new, 0).astype(bits_word),
+                   move_row=rec[:, r0 + w:r0 + 2 * w],
+                   move_fill=rec[:, r0 + 2 * w:])
+    return out
+
+
 @pytest.mark.parametrize("for_reach", [False, True])
 def test_kernel_layout_equals_level_consts(for_reach):
+    """Each level's kernel pack, decoded as the kernel reads it, equals
+    level_consts field by field (and the binomials the tables'), in the
+    board's words and the 64-bit ones."""
     t = dense.tables_for(4, 4, 4)
-    words = dense_level.word_widths(4, 4)
-    fields = (("topstone", "parent_row", "parent_cellidx") if for_reach
-              else ("newbit", "valid", "move_row", "move_fill",
-                    "child_cellidx"))
-    for L in range(t.ncells + 1):
-        kc = dense_level.kernel_consts(t, L, for_reach, "cpu")
-        c = t.level_consts(L)
-        unsigned = {4: np.uint32, 8: np.uint64}
-        for name in ("cellidx", "filled") + fields:
-            got = kc[name].numpy()
-            if got.dtype.kind == "i" and c[name].dtype.kind == "u":
-                got = got.view(unsigned[got.dtype.itemsize])
-            assert got.shape == c[name].shape, (L, name)
-            assert got.flags["C_CONTIGUOUS"]
-            np.testing.assert_array_equal(got, c[name], err_msg=f"{L} {name}")
-        assert kc["cellidx"].dtype == torch.int8
-        assert kc["filled"].element_size() * 8 == words.bits
-        np.testing.assert_array_equal(
-            kc["binom"].numpy().view(np.uint32).astype(np.uint64), t.binom)
+    fields = (("topstone", "parent_row") if for_reach
+              else ("newbit", "valid", "move_row", "move_fill"))
+    for words in (dense_level.word_widths(4, 4),
+                  dense_level.Words(64, 64, 64)):
+        for L in range(t.ncells + 1):
+            g = dataclasses.replace(dense_level.level_geom(t, L),
+                                    words=words)
+            pack = dense_level.kernel_pack(t, L, for_reach, words)
+            assert pack.dtype == np.int32 and pack.flags["C_CONTIGUOUS"]
+            lay = dense_level.pack_layout(g, for_reach)
+            P = len(t.profiles[L])
+            assert pack.size == lay.rows + P * lay.stride
+            got = _unpack(g, pack, for_reach)
+            c = t.level_consts(L)
+            for name in ("filled", "cellidx") + fields:
+                want = c[name]
+                assert got[name].shape == want.shape, (L, name)
+                np.testing.assert_array_equal(got[name], want,
+                                              err_msg=f"{L} {name}")
+            # The walk's insertion slots: the reference's snapk on valid
+            # moves (and -1 where the column is full).
+            np.testing.assert_array_equal(got["snapk"], c["snapk"])
+            np.testing.assert_array_equal(got["heights"], t.profiles[L])
+            assert got["binom"].itemsize * 8 == words.rank
+            np.testing.assert_array_equal(
+                got["binom"].astype(np.uint64), t.binom)
+            assert got["filled"].itemsize * 8 == words.bits
 
 
 def test_geometry_and_launch_arithmetic():
@@ -152,14 +204,23 @@ def test_geometry_and_launch_arithmetic():
         assert g.parent_size == (t.class_size[L - 1] if L else 1)
         assert g.bitpos == tuple(int(b) for b in t.bitpos)
     g = dense_level.level_geom(t, 9)
-    plan = dense_level.step_plan(g, 10, 2049, 1000)
-    assert (plan.n, plan.grid, plan.nwin) == (20490, 11, 2)
-    # The binomial table (17 x 10 u32 = 680 B), 8-aligned, then the masks.
-    assert plan.smem == 680 + 16 * 4
+    lmap = dense_level.LaunchMap(10, 5000, 2049, 3)
+    assert (lmap.width, lmap.nlanes, lmap.runs, lmap.grid) == (
+        2049, 20490, 11, 33)
+    plan = dense_level.step_plan(g, lmap, 1000, False)
+    assert (plan.grid, plan.nwin) == (33, 2)
+    # The binomial table (18 rows of 34 u32 = 2,448 B), then the row
+    # record (2 + 3*4 int32 = 56 B; the reach step's 2 + 2*4 = 40 B).
+    assert plan.smem == 2448 + 56
+    assert dense_level.step_plan(g, lmap, 1000, True).smem == 2448 + 40
     big = dataclasses.replace(g, width=7, height=6, words=dense_level.Words(
         64, 64, 64))
-    assert dense_level.step_plan(big, 1, 1, 1).smem == (
-        43 * 23 * 8 + 42 * 8) < 48 * 1024
+    assert dense_level.step_plan(big, lmap, 1, False).smem == (
+        44 * 34 * 8 + 96) < 48 * 1024
+    slice_ = dense_level.LaunchMap(10, 5000, 4096, 2, 2048, 4096)
+    assert (slice_.width, slice_.runs, slice_.grid) == (2048, 10, 20)
+    with pytest.raises(ValueError):
+        dense_level.LaunchMap(10, 5000, 2048, 2)  # blocks short of C
 
 
 def test_launch_args_follow_the_source():
@@ -172,11 +233,16 @@ def test_launch_args_follow_the_source():
     for const, value in (("kThreads", dense_level.THREADS),
                          ("kRun", dense_level.RUN),
                          ("kWindow", dense_level.WINDOW),
+                         ("kWindowShift", dense_level.WINDOW.bit_length()
+                          - 1),
                          ("kMaxCols", dense_level.MAX_COLS),
-                         ("kMaxCells", dense_level.MAX_CELLS)):
+                         ("kMaxCells", dense_level.MAX_CELLS),
+                         ("kMaxSmem", "227 \\* 1024"),
+                         ("kRecHeights", dense_level.REC_HEIGHTS),
+                         ("kStride", dense_level.BINOM_STRIDE)):
         assert re.search(rf"constexpr [a-z ]+{const} = {value};", src), const
     for case in (0, 1, 5, 7):
-        assert f"case {case}: e = launch<" in src
+        assert f"case {case}: return launch<" in src
     assert dense.WINDOW_BLOCK == dense_level.RUN
     assert dense.WINDOW_ELEMS == dense_level.WINDOW
     lib, fns = build.SOURCES["dense_level"]
@@ -185,17 +251,32 @@ def test_launch_args_follow_the_source():
     assert {"dense_step", "reach_step"} <= set(kernels.LAUNCHES)
     # The argument vector, on CPU tensors (pointers are only carried).
     s = dense.DenseSolver(get_game("connect4:w=4,h=4"), device="cpu")
-    g = dense_level.level_geom(s.tables, 8)
-    kc = dense_level.kernel_consts(s.tables, 8, False, "cpu")
+    t = s.tables
+    g = dense_level.level_geom(t, 8)
+    P, C = len(t.profiles[8]), t.class_size[8]
+    pack = torch.from_numpy(dense_level.kernel_pack(t, 8, False))
+    lmap = dense_level.LaunchMap(P, C, 32, -(-C // 32), 0, 32)
     src_cells = torch.zeros(100, dtype=torch.uint8)
-    out = torch.empty((kc["cellidx"].shape[0], 70), dtype=torch.uint8)
+    out = torch.empty((P, C), dtype=torch.uint8)
     counter = torch.zeros((), dtype=torch.int64)
     a = dict(zip(dense_level.ARGS, dense_level.launch_args(
-        g, 0, 70, src_cells, kc, out, counter, False)))
-    assert (a["P"], a["width"], a["size"], a["adj"], a["m"], a["level"]) == (
-        kc["cellidx"].shape[0], 70, 70, s.tables.class_size[9], 100, 8)
-    assert a["valid"] == kc["valid"].data_ptr() and a["words"] == 0
-    assert a["grid"] == -(-a["n"] // dense_level.RUN)
+        g, lmap, src_cells, pack, out, counter, False)))
+    assert (a["P"], a["size"], a["cblock"], a["width"], a["adj"], a["m"],
+            a["level"]) == (P, C, 32, 32, t.class_size[9], 100, 8)
+    assert a["binom"] == pack.data_ptr() and a["words"] == 0
+    assert a["rows"] == pack.data_ptr() + 4 * dense_level.pack_layout(
+        g, False).rows
+    assert a["runs"] == -(-P * 32 // dense_level.RUN)
+    assert a["grid"] == a["nblk"] * a["runs"]
+    # The output: the level's [P, C] in place, or a shard's compact array.
+    assert (a["ld"], a["ostep"], a["obase"]) == (C, 32, 0)
+    shard = dense_level.LaunchMap(P, C, 32, -(-C // 32), 8, 24, compact=True)
+    a = dict(zip(dense_level.ARGS, dense_level.launch_args(
+        g, shard, src_cells, pack, torch.empty((P, shard.out_cols),
+                                               dtype=torch.uint8),
+        counter, False)))
+    assert (a["ld"], a["ostep"], a["obase"], a["lo"], a["width"]) == (
+        shard.nblk * 16, 16, 0, 8, 16)
 
 
 # ----------------------------------------------------------- the wrappers
@@ -215,66 +296,158 @@ def _level_inputs(solver, L, for_reach, solved):
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu():
+    """On CPU tensors the level wrappers write, block by block, what the
+    block steps' plain versions give (in-range lanes of every block of a
+    slice, nothing else), and launch nothing."""
     s = dense.DenseSolver(get_game("connect4:w=4,h=4"), device="cpu",
                           block_elems=1 << 12)
     solved = s.solve()
     before = dict(kernels.LAUNCHES)
+    t = s.tables
     for L in (1, 8, 13, 16):
-        g = dense_level.level_geom(s.tables, L)
-        cblock, _ = s._cblock(L)
+        g = dense_level.level_geom(t, L)
+        P, C = len(t.profiles[L]), t.class_size[L]
+        cblock, nblk = s._cblock(L)
         for for_reach in (False, True):
             consts, src = _level_inputs(s, L, for_reach, solved)
-            args = (g, cblock, cblock, src, consts, s._binom)
-            if for_reach:
-                got, n = dense_level.reach_step(*args)
-                want, n_ref = dense_level.reach_step_ref(*args)
-            else:
-                got, n = dense_level.dense_step(*args)
-                want, n_ref = dense_level.dense_step_ref(*args, "window")
-            assert torch.equal(got, want)
-            assert (n is None) == (n_ref is None) == (
-                L == 16 and not for_reach)
-            if n is not None:
-                assert int(n) == int(n_ref)
+            for lo, hi in ((0, cblock), (cblock // 2, cblock)):
+                lmap = dense_level.LaunchMap(P, C, cblock, nblk, lo, hi)
+                out = torch.full((P, C), 0xEE, dtype=torch.uint8)
+                args = (g, lmap, src, consts, s._binom, out)
+                if for_reach:
+                    n = dense_level.reach_step(*args)
+                else:
+                    n = dense_level.dense_step(*args)
+                want = torch.full((P, C), 0xEE, dtype=torch.uint8)
+                n_ref = None
+                for b in range(nblk):
+                    rank0, end = lmap.block_ranks(b)
+                    blk = (g, rank0, lmap.width, src, consts, s._binom)
+                    if for_reach:
+                        cells, extra = dense_level.reach_step_ref(*blk)
+                    else:
+                        cells, extra = dense_level.dense_step_ref(
+                            *blk, "window")
+                    end = min(end, C)
+                    want[:, rank0:end] = cells[:, :max(end - rank0, 0)]
+                    if extra is not None:
+                        n_ref = extra if n_ref is None else n_ref + extra
+                assert torch.equal(out, want), (L, for_reach, lo)
+                assert (n is None) == (n_ref is None) == (
+                    L == 16 and not for_reach)
+                if n is not None:
+                    assert int(n) == int(n_ref)
+                if lo == 0:
+                    assert (out != 0xEE).all()
+                    if not for_reach:  # the solve's own cells
+                        np.testing.assert_array_equal(out.numpy(),
+                                                      solved.cells[L])
     assert kernels.LAUNCHES == before  # no kernel ran
 
 
 def test_wrappers_raise_off_the_cpu_and_the_card():
     s = dense.DenseSolver(get_game(SMALL[0]), device="cpu")
-    g = dense_level.level_geom(s.tables, 4)
+    t = s.tables
+    g = dense_level.level_geom(t, 4)
+    lmap = dense_level.LaunchMap(len(t.profiles[4]), t.class_size[4],
+                                 t.class_size[4], 1)
     meta = torch.zeros(10, dtype=torch.uint8, device="meta")
+    out = torch.empty((lmap.P, lmap.size), dtype=torch.uint8, device="meta")
     with pytest.raises(RuntimeError, match="no dense_step kernel for meta"):
-        dense_level.dense_step(g, 0, 8, meta, s._level_tensors(4, False),
-                               s._binom)
+        dense_level.dense_step(g, lmap, meta, s._level_tensors(4, False),
+                               s._binom, out)
     with pytest.raises(RuntimeError, match="no reach_step kernel for meta"):
-        dense_level.reach_step(g, 0, 8, meta, s._level_tensors(4, True),
-                               s._binom)
+        dense_level.reach_step(g, lmap, meta, s._level_tensors(4, True),
+                               s._binom, out)
+
+
+def _old_ops(g, lanes, pairs, for_reach):
+    """The count before the fused walk (3 per board cell per lane, 2 per
+    cell per pair for its rank walk): the revised one never exceeds it."""
+    nc, fold = g.ncells, 4 * (2 * (g.connect - 1) + 1)
+    if for_reach:
+        return lanes * 3 * nc + pairs * (2 * nc + 8 + fold)
+    return lanes * (3 * nc + 2 * fold) + pairs * (2 * nc + 8)
+
+
+@pytest.mark.parametrize("connect", [2, 3, 4, 5])
+def test_fold_ops_counts_a_doubling_fold(connect):
+    """fold_ops is the work of a fold that finds `connect` in a row by
+    doubling the run (x &= x >> (step*d), step up to the run so far),
+    counted here operation by operation; that fold agrees with the plain
+    one on seeded bitboards."""
+    t = dense.tables_for(4, 4, 4)
+    g = dataclasses.replace(dense_level.level_geom(t, 8), connect=connect)
+    h = g.height
+    boards = torch.from_numpy(np.random.default_rng(connect).integers(
+        0, 1 << (t.width * (h + 1)), 4000))
+    hit, ops = torch.zeros(boards.shape, dtype=torch.bool), 0
+    for d in (1, h, h + 1, h + 2):
+        x, run = boards, 1
+        while run < connect:
+            step = min(run, connect - run)
+            x, run, ops = x & (x >> (step * d)), run + step, ops + 2
+        hit, ops = hit | (x != 0), ops + 1
+    assert ops == dense_level.fold_ops(g)
+    want = dense_level._connected_fold(boards, h, connect)
+    assert torch.equal(hit, want) and 0 < int(want.sum()) < len(boards)
 
 
 def test_step_work_counts_the_data():
+    """The bound's operations, counted here from the data independently:
+    per in-range lane the level's class indices (1 each) and its stones
+    (3 each), 10 per followed pair, a fold per player (backward) or per
+    lane that follows any column (reach); never above the old count. A
+    fold of four in a row is four directions of x = s & s >> d, x & x >>
+    2d and a test: 5 operations each."""
     s = dense.DenseSolver(get_game("connect4:w=4,h=4"), device="cpu")
     t = s.tables
+    fold = 4 * 5
+    for L in (9, 16):
+        g = dense_level.level_geom(t, L)
+        P, C = len(t.profiles[L]), t.class_size[L]
+        consts = s._level_tensors(L, False)
+        lmap = dense_level.LaunchMap(P, C, 200, -(-C // 200))
+        work = dense_level.dense_followed(g, lmap, consts)
+        valid = t.level_consts(L)["valid"]
+        assert work.lanes == P * C
+        assert work.pairs == (0 if L == 16 else C * int(valid.sum()))
+        assert work.folds == 2 * P * C
+        pack_bytes = dense_level.kernel_pack(t, L, False).nbytes
+        nbytes, ops = dense_level.step_work(g, 10 ** 6, work, pack_bytes)
+        n1 = (L + 1) // 2
+        assert ops == P * C * (L + 3 * n1 + 2 * fold) + work.pairs * 10
+        assert ops <= _old_ops(g, work.lanes, work.pairs, False)
+        assert nbytes == P * C + work.pairs + pack_bytes
+    # The reach step: every parent reachable, so a lane whose parents are
+    # live stops at its first column whose top stone is the last mover's
+    # (ply L = 9: player 1).
     L = 9
     g = dense_level.level_geom(t, L)
-    consts = s._level_tensors(L, False)
-    P = consts["filled"].shape[0]
-    lanes, followed = dense_level.dense_followed(g, 0, 200, consts)
-    assert lanes == P * t.class_size[L]  # 126 in range of 200
-    assert followed == t.class_size[L] * int(consts["valid"].sum())
-    nbytes, ops = dense_level.step_work(g, P, 200, 10 ** 6, lanes, followed,
-                                        False)
-    fold = 4 * (2 * 3 + 1)
-    assert ops == lanes * (3 * 16 + 2 * fold) + followed * (2 * 16 + 8)
-    assert nbytes >= P * 200 + followed
+    P, C = len(t.profiles[L]), t.class_size[L]
     rc = s._level_tensors(L, True)
     parent = torch.ones(len(t.profiles[L - 1]) * t.class_size[L - 1],
                         dtype=torch.uint8)
-    lanes, followed = dense_level.reach_followed(g, 0, t.class_size[L], rc,
-                                                 s._binom, parent)
-    # Every parent reachable: a lane stops at its first live column.
-    _, count = dense_level.reach_step_ref(g, 0, t.class_size[L], parent, rc,
-                                          s._binom)
-    assert lanes == P * t.class_size[L] and int(count) <= followed
+    lmap = dense_level.LaunchMap(P, C, C, 1)
+    work = dense_level.reach_followed(g, lmap, rc, s._binom, parent)
+    prof = t.profiles[L]
+    pairs = folds = 0
+    for row in range(P):
+        top = [c for c in range(t.width) if prof[row, c] > 0]
+        filled = sum(((1 << int(prof[row, c])) - 1) << (c * t.h1)
+                     for c in range(t.width))
+        for r in range(C):
+            p1 = t.unrank_np(L, row, r)
+            mine = [c for c in top if (p1 >> int(t.bitpos[
+                c * t.height + prof[row, c] - 1])) & 1]
+            # Player 2's line: no parent is live, every column is tried.
+            dead = t._connected_np(filled ^ p1)
+            pairs += len(mine) if dead else min(len(mine), 1)
+            folds += bool(mine)
+    assert (work.lanes, work.pairs, work.folds) == (P * C, pairs, folds)
+    _, ops = dense_level.step_work(g, parent.numel(), work, 0)
+    assert ops == (P * C * (L + 3 * 5) + pairs * 10 + folds * fold)
+    assert ops <= _old_ops(g, work.lanes, work.pairs, True)
 
 
 # --------------------------------------------------------- on the card
@@ -285,29 +458,22 @@ def _need_card():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
 
 
-def _check_launch(name, g, rank0, width, got, want, extra, extra_ref):
-    ok = (rank0 + torch.arange(width)) < g.size
-    np.testing.assert_array_equal(got.cpu()[:, ok].numpy(),
-                                  want.cpu()[:, ok].numpy(),
-                                  err_msg=f"{name} level {g.level}")
-    assert (extra is None) == (extra_ref is None)
-    if extra is not None:
-        assert int(extra) == int(extra_ref), (name, g.level)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("words", [None, (64, 32, 32), (64, 32, 64),
                                    (64, 64, 64)])
 @pytest.mark.parametrize("spec,block", [("connect4:w=4,h=4", 1 << 12),
                                         ("connect4:w=5,h=4", 1 << 16)])
-def test_kernels_match_plain_versions_on_every_level(spec, block, words):
-    """Each rank block of each level through both kernels and their plain
-    versions on the card: in-range lanes bit-identical, nmiss and the
-    reach count equal; also in the 64-bit words of larger boards."""
+def test_kernels_match_plain_versions_on_every_level(spec, block, words,
+                                                    monkeypatch):
+    """Each level through both kernels, one launch each, and their plain
+    versions over the same lanes on the card: every cell bit-identical,
+    nmiss and the reach count equal; also in the 64-bit words of larger
+    boards and on the slices of a 3-shard mesh."""
     _need_card()
+    monkeypatch.setenv("GAMESMAN_FAKE_DEVICES", "4")
     cpu = dense.DenseSolver(get_game(spec), device="cpu",
                             block_elems=block).solve()
-    s = dense.DenseSolver(get_game(spec), block_elems=block)
+    s = dense.DenseSolver(get_game(spec), block_elems=block, devices=3)
     t = s.tables
     w = dense_level.Words(*words) if words else None
     before = dict(kernels.LAUNCHES)
@@ -316,23 +482,39 @@ def test_kernels_match_plain_versions_on_every_level(spec, block, words):
         g = dense_level.level_geom(t, L)
         if w is not None:
             g = dataclasses.replace(g, words=w)
+        P, C = len(t.profiles[L]), t.class_size[L]
         cblock, nblk = s._cblock(L)
         for for_reach in ((False, True) if L else (False,)):
             consts, src = _level_inputs(s, L, for_reach, cpu)
-            consts = dict(consts, kernel=dense_level.kernel_consts(
-                t, L, for_reach, "cuda", w))
+            pack = {"pack": torch.from_numpy(dense_level.kernel_pack(
+                t, L, for_reach, w)).cuda()}
             src = src.cuda()
-            for b in range(nblk):
-                args = (g, b * cblock, cblock, src, consts, s._binom)
+            # One device's launch, then the mesh's compact shard slices.
+            slices = [(lo, hi, True) for lo, hi in s._lane_slices(
+                cblock, not for_reach)]
+            for lo, hi, compact in [(0, cblock, False)] + slices:
+                if hi == lo:
+                    continue
+                lmap = dense_level.LaunchMap(P, C, cblock, nblk, lo, hi,
+                                             compact)
+                got = torch.full((P, lmap.out_cols), 0xEE,
+                                 dtype=torch.uint8, device="cuda")
+                want = got.clone()
                 if for_reach:
-                    got, n = dense_level.reach_step(*args)
-                    want, n_ref = dense_level.reach_step_ref(*args)
+                    n = dense_level.reach_step(g, lmap, src, pack, None, got)
+                    n_ref = dense_level.reach_level_ref(g, lmap, src, consts,
+                                                        s._binom, want)
                 else:
-                    got, n = dense_level.dense_step(*args)
-                    want, n_ref = dense_level.dense_step_ref(*args, "window")
+                    n = dense_level.dense_step(g, lmap, src, pack, None, got)
+                    n_ref = dense_level.dense_level_ref(g, lmap, src, consts,
+                                                        s._binom, want)
                 torch.cuda.synchronize()
-                _check_launch("reach" if for_reach else "dense", g,
-                              b * cblock, cblock, got, want, n, n_ref)
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(), want.cpu().numpy(),
+                    err_msg=f"{'reach' if for_reach else 'dense'} level {L}")
+                assert (n is None) == (n_ref is None)
+                if n is not None:
+                    assert int(n) == int(n_ref), (for_reach, L, lo)
                 launched += 1
     assert sum(kernels.LAUNCHES[k] - before[k]
                for k in ("dense_step", "reach_step")) == launched
@@ -341,21 +523,29 @@ def test_kernels_match_plain_versions_on_every_level(spec, block, words):
 @pytest.mark.cuda
 @pytest.mark.parametrize("devices", [1, 2, 3])
 def test_card_solves_on_the_kernels_match_the_cpu(devices, monkeypatch):
-    """Blocked and meshed dense solves on the card launch both kernels,
-    count Tromp's positions and give the CPU's cells and nmiss."""
+    """Blocked and meshed dense solves on the card launch each kernel once
+    per level and shard slice, count Tromp's positions and give the CPU's
+    cells and nmiss. The counts file is off, so each solve sweeps."""
     _need_card()
     monkeypatch.setenv("GAMESMAN_FAKE_DEVICES", "4")
+    monkeypatch.setenv("GAMESMAN_DENSE_COUNTS_FILE", "0")
     for spec, want in (("connect4:w=4,h=4", 161029),
                        ("connect4:w=5,h=4", 3945711)):
         dense._REACH_COUNTS.clear()
         cpu = dense.DenseSolver(get_game(spec), device="cpu",
                                 block_elems=1 << 14).solve()
         dense._REACH_COUNTS.clear()
-        card = dense.DenseSolver(get_game(spec), block_elems=1 << 14,
-                                 devices=devices).solve()
+        s = dense.DenseSolver(get_game(spec), block_elems=1 << 14,
+                              devices=devices)
+        card = s.solve()
         assert card.num_positions == cpu.num_positions == want
         launches = card.stats["kernel_launches"]
-        assert launches["dense_step"] > 0 and launches["reach_step"] > 0
+        t = s.tables
+        # One launch per level and shard slice (the launch arithmetic).
+        assert launches["dense_step"] == sum(
+            len(s._launch_maps(L, False)) for L in range(t.ncells + 1))
+        assert launches["reach_step"] == sum(
+            len(s._launch_maps(L, True)) for L in range(1, t.ncells + 1))
         assert card.stats["gather_launches"] == launches["dense_step"]
         assert card.stats["gather_nmiss_per_level"] == cpu.stats[
             "gather_nmiss_per_level"]

@@ -1,7 +1,9 @@
-"""Time one source tree's two CUDA kernels on one card, in turns with their
-PyTorch calls.
+"""Time one source tree's CUDA kernels on one card: the window gather and
+the doubling in turns with their PyTorch calls, the dense level kernels
+at the widest 5x5 levels.
 
-    python tools/torch_kernel_ab.py [--tree DIR] [--label NAME] [--rounds 5] [--out FILE]
+    python tools/torch_kernel_ab.py [--tree DIR] [--label NAME] [--rounds 5]
+                                    [--levels-only] [--out FILE]
 
 `--tree` is the root of a checkout of this repository (default: this
 one). Its `gamesmanmpi_tpu_torch` is the one imported, so its kernels are
@@ -12,6 +14,17 @@ alike. To compare two commits on one card, unpack the older one with
 `git archive` into a directory that .gitignore lists and run, in one
 command, base, change, change, base; then compare the medians across the
 runs, and each run's kernel against the library call it was timed with.
+
+The level kernels (`dense_step`, `reach_step`) run through whichever API
+the tree has: one launch per level over a `LaunchMap` (since the fused
+walk), or one launch per rank block (before it, all of the level's blocks
+timed together). Both take the widest 5x5 backward level (over the
+solve's own child cells) and the widest reach level (over the sweep's
+parent reach), so two trees do the same work; each level is first held
+bit-identical to the tree's plain block steps on its in-range lanes.
+Their bound is the tree's own `step_work` where it has the revised count
+(`dense_level.Work`), else null. `--levels-only` skips the gather and
+the doubling.
 
 Needs an NVIDIA card; exits 1 without one. Each kernel is first held
 bit-identical to the tree's plain version (and the gather's `nmiss`
@@ -57,6 +70,94 @@ def _record(kernel, times, bound_ms, **fields):
             "kernel_over_library": k / lib}
 
 
+def _level_launch(dense_level, s, L, for_reach, src):
+    """(run, result) closures of level L's kernel work in the tree's API:
+    run() launches, result() gives the [P, C] level array."""
+    t = s.tables
+    geom = dense_level.level_geom(t, L)
+    P, C = len(t.profiles[L]), t.class_size[L]
+    cblock, nblk = s._cblock(L)
+    step = dense_level.reach_step if for_reach else dense_level.dense_step
+    if hasattr(dense_level, "LaunchMap"):
+        lmap = dense_level.LaunchMap(P, C, cblock, nblk)
+        consts = s._kernel_consts(L, for_reach, src.device)
+        out = torch.empty((P, C), dtype=torch.uint8, device=src.device)
+
+        def run():
+            return step(geom, lmap, src, consts, None, out)
+
+        def result():
+            run()
+            return out
+    else:
+        consts = s._level_tensors(L, for_reach)
+
+        def run():
+            return [step(geom, b * cblock, cblock, src, consts, s._binom)
+                    for b in range(nblk)]
+
+        def result():
+            return torch.cat([o for o, _ in run()], dim=1)[:, :C]
+    return run, result
+
+
+def measure_levels(dev, kc, rounds):
+    """Yield one record per level kernel of the imported tree: the widest
+    5x5 backward and reach levels."""
+    from gamesmanmpi_tpu_torch.games import get_game
+    from gamesmanmpi_tpu_torch.ops import dense_level
+    from gamesmanmpi_tpu_torch.solve import dense
+
+    game = get_game("connect4:w=5,h=5")
+    solved = dense.DenseSolver(game, device=dev).solve()
+    s = dense.DenseSolver(game, device=dev)
+    t = s.tables
+    rate = kc.hbm_bytes_per_sec(torch.cuda.get_device_name(dev))
+    int_rate = kc.int32_ops_per_sec()
+    for name, for_reach in (("dense_step", False), ("reach_step", True)):
+        levels = range(1, t.ncells + 1) if for_reach else range(t.ncells)
+        L = max(levels, key=lambda k: len(t.profiles[k]) * s._cblock(k)[0])
+        if for_reach:
+            _, src = s._sweep_levels(L - 1)
+        else:
+            src = torch.from_numpy(solved.cells[L + 1]).reshape(-1).to(dev)
+        run, result = _level_launch(dense_level, s, L, for_reach, src)
+        got = result()
+        P, C = got.shape
+        cblock, nblk = s._cblock(L)
+        eager = {k: v for k, v in s._level_tensors(L, for_reach).items()
+                 if k != "kernel"}
+        want = []
+        for b in range(nblk):
+            args = (dense_level.level_geom(t, L), b * cblock, cblock, src,
+                    eager, s._binom)
+            want.append(dense_level.reach_step_ref(*args)[0] if for_reach
+                        else dense_level.dense_step_ref(*args, "window")[0])
+        if not torch.equal(got, torch.cat(want, dim=1)[:, :C]):
+            raise AssertionError(f"{name} at level {L} differs from the "
+                                 "tree's plain version")
+        del got, want
+        times = kc.time_turns({"kernel": run}, rounds, iters=2, warmup=1)
+        bound_ms = None
+        if hasattr(dense_level, "Work"):
+            lmap = dense_level.LaunchMap(P, C, cblock, nblk)
+            work = (dense_level.reach_followed(
+                dense_level.level_geom(t, L), lmap, eager, s._binom, src)
+                if for_reach else dense_level.dense_followed(
+                    dense_level.level_geom(t, L), lmap, eager))
+            nbytes, ops = dense_level.step_work(
+                dense_level.level_geom(t, L), src.shape[0], work,
+                s._kernel_consts(L, for_reach, dev)["pack"].numel() * 4)
+            bound_ms = max(nbytes / rate, ops / int_rate) * 1e3
+        k = times["kernel"]
+        yield {"kernel": name, "level": L, "rows": P, "size": C,
+               "blocks": nblk, "ms": k["median_ms"], "ms_min": k["min_ms"],
+               "ms_max": k["max_ms"], "samples": k["samples"],
+               "bound_ms": bound_ms,
+               "bound_share": bound_ms / k["median_ms"] if bound_ms
+               else None}
+
+
 def measure(dev, kc, rounds):
     """Yield one record per kernel and shape of the imported tree."""
     from gamesmanmpi_tpu_torch.ops import elementwise, window_gather
@@ -99,6 +200,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=str(REPO))
     ap.add_argument("--label", default=None)
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--levels-only", action="store_true",
+                    help="time only the dense level kernels")
     ap.add_argument("--out", default="chiprun_out/torch_kernel_ab.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -116,7 +219,9 @@ def main(argv=None) -> int:
     smi = kc.nvidia_smi_line()
     dev = torch.device("cuda", 0)
     records = []
-    for rec in measure(dev, kc, args.rounds):
+    cases = [] if args.levels_only else [measure(dev, kc, args.rounds)]
+    cases.append(measure_levels(dev, kc, args.rounds))
+    for rec in (r for case in cases for r in case):
         rec["tree"] = label
         records.append(rec)
         print(json.dumps(rec), flush=True)
