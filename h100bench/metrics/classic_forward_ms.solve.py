@@ -1,0 +1,10 @@
+"""The classic engine's forward per solve, in ms: the result's
+stats["secs_forward"] summed over the traced window's solves / solves.
+Moves solve_pos_per_s."""
+
+
+def read(ctx):
+    stats = ctx.get("stats")
+    if not stats or any(s.get("secs_forward") is None for s in stats):
+        return None
+    return 1e3 * sum(s["secs_forward"] for s in stats) / len(stats)
