@@ -89,10 +89,12 @@ directory is resumed, and ``done``. Beside them each level runs under a
 ``backward`` span that writes no record (the registry's
 ``gamesman_span_seconds`` and the Chrome trace sink) and ends at the
 level's host copy when one is taken, and each seal under a
-``checkpoint`` span. ``progress`` is replaced per level for the
-heartbeat (``heartbeat_secs`` / ``GAMESMAN_HEARTBEAT_SECS``), the
-watchdog (``GAMESMAN_WATCHDOG_SECS``) and the ``/status`` server
-(``GAMESMAN_STATUS_PORT``), whose level schedule counts encodable cells.
+``checkpoint`` span. A traced solve (``solve``) adds the spans that
+tile it and its count of blocking device reads in ``stats["trace"]``.
+``progress`` is replaced per level for the heartbeat (``heartbeat_secs``
+/ ``GAMESMAN_HEARTBEAT_SECS``), the watchdog (``GAMESMAN_WATCHDOG_SECS``)
+and the ``/status`` server (``GAMESMAN_STATUS_PORT``), whose level
+schedule counts encodable cells.
 """
 
 from __future__ import annotations
@@ -115,6 +117,7 @@ from gamesmanmpi_tpu_torch.obs import (
     flightrec,
     trace_span,
 )
+from gamesmanmpi_tpu_torch.obs.tracing import SpanTree, tracing_on
 from gamesmanmpi_tpu_torch.ops import dense_level
 from gamesmanmpi_tpu_torch.ops.dense_level import (  # noqa: F401 (re-export)
     _connected_fold,
@@ -672,6 +675,13 @@ class DenseSolver:
         #: where reachable_counts took the counts from: "sweep", "file"
         #: or "process" (None before it ran)
         self.reach_counts_source: Optional[str] = None
+        #: the solve's blocking reads of device values (each level's
+        #: download, each per-level miss count, each reach count of a
+        #: sweep, the root; the same sites count on the CPU), reset at
+        #: each solve's entry
+        self.host_syncs = 0
+        #: the solve's span tree (None unless traced)
+        self._tree: Optional[SpanTree] = None
 
     @property
     def _board_key(self):
@@ -767,6 +777,16 @@ class DenseSolver:
             self._consts[key] = {"pack": host.to(device, non_blocking=True)}
         return self._consts[key]
 
+    def _step_consts(self, L: int, for_reach: bool, mode: str,
+                     device) -> tuple:
+        """(consts, binom) of one launch at level L on `device`: the
+        kernel pack where the kernels run (window mode on the card), else
+        the plain steps' layout and binomial table."""
+        if mode == "window" and device.type == "cuda":
+            return self._kernel_consts(L, for_reach, device), None
+        return (self._level_tensors(L, for_reach, device),
+                self._binom_on(device))
+
     # -- the level steps ----------------------------------------------------
 
     def _launch_maps(self, L: int, for_reach: bool) -> list:
@@ -799,27 +819,31 @@ class DenseSolver:
         t = self.tables
         P, C = len(t.profiles[L]), t.class_size[L]
         mode = "window" if for_reach else self.gather_mode
+        # A traced solve's backward level: its constants under
+        # dense_pack, the rest up to the last launch under dense_launch.
+        tree = None if for_reach else self._tree
+        maps = self._launch_maps(L, for_reach)
+        sp = (None if tree is None
+              else Span("dense_pack", tree=tree, detail=True, level=L))
+        consts = [self._step_consts(L, for_reach, mode, other[i].device)
+                  for i, _ in maps]
+        if sp is not None:
+            sp.end()
+            sp = Span("dense_launch", tree=tree, detail=True, level=L)
         geom = dense_level.level_geom(t, L)
         out = torch.empty((P, C), dtype=torch.uint8, device=self.device)
         total, shards = None, []
-        for i, lmap in self._launch_maps(L, for_reach):
+        for (i, lmap), (cst, binom) in zip(maps, consts):
             src = other[i]
-            dev = src.device
             target = out if not lmap.compact else torch.empty(
-                (P, lmap.out_cols), dtype=torch.uint8, device=dev)
+                (P, lmap.out_cols), dtype=torch.uint8, device=src.device)
             if mode != "window":
                 extra = dense_level.dense_level_ref(
-                    geom, lmap, src, self._level_tensors(L, False, dev),
-                    self._binom_on(dev), target, mode)
+                    geom, lmap, src, cst, binom, target, mode)
             else:
-                consts = (self._kernel_consts(L, for_reach, dev)
-                          if dev.type == "cuda"
-                          else self._level_tensors(L, for_reach, dev))
                 step = (dense_level.reach_step if for_reach
                         else dense_level.dense_step)
-                extra = step(geom, lmap, src, consts,
-                             None if dev.type == "cuda"
-                             else self._binom_on(dev), target)
+                extra = step(geom, lmap, src, cst, binom, target)
             if target is not out:
                 shards.append((lmap, target))
             if extra is not None:
@@ -827,6 +851,8 @@ class DenseSolver:
                 total = extra if total is None else total + extra
         for lmap, target in shards:
             dense_level.merge_shard(lmap, target, out)
+        if sp is not None:
+            sp.end()
         return out, total
 
     def _sweep_levels(self, last_level: int):
@@ -843,6 +869,7 @@ class DenseSolver:
             counts_dev[L] = cnt
         counts = {0: 1}
         counts.update({L: int(v) for L, v in counts_dev.items()})
+        self.host_syncs += len(counts_dev)
         return counts, reach
 
     def reachable_counts(self) -> Dict[int, int]:
@@ -919,15 +946,42 @@ class DenseSolver:
         levels are taken as given, not recomputed. With a checkpointer the
         resume cells come from its directory (a level mapped to None is
         sealed but not read), and each computed level is sealed.
-        """
-        self.status_tracker.begin(game=self.game.name, engine="dense",
-                                  world=1, rank=0)
-        with watched(lambda: self.progress, self.logger, self.heartbeat_secs,
-                     lambda: self.status_tracker.snapshot(
-                         progress=self.progress)):
-            return self._solve_impl(resume_cells)
 
-    def _solve_impl(self, resume_cells) -> DenseSolveResult:
+        Traced (obs/tracing.tracing_on(), read here once): the solve's
+        spans tile it under ``dense_solve`` (``dense_enter``, per level
+        ``backward`` with its ``dense_pack``, ``dense_launch`` and
+        ``dense_download`` and a ``dense_record`` after it, then
+        ``dense_exit``), and ``stats["trace"]`` holds their counts and
+        seconds and the solve's ``host_syncs``.
+        """
+        self.host_syncs = 0
+        tree = SpanTree() if tracing_on() else None
+        root = enter = None
+        if tree is not None:
+            root = Span("dense_solve", tree=tree, detail=True)
+            enter = Span("dense_enter", tree=tree, detail=True)
+        self._tree = tree
+        try:
+            self.status_tracker.begin(game=self.game.name, engine="dense",
+                                      world=1, rank=0)
+            with watched(lambda: self.progress, self.logger,
+                         self.heartbeat_secs,
+                         lambda: self.status_tracker.snapshot(
+                             progress=self.progress)):
+                result = self._solve_impl(resume_cells, enter)
+            if tree is not None:
+                root.end()
+                result.stats["trace"] = {**tree.finish(),
+                                         "host_syncs": self.host_syncs}
+        finally:
+            self._tree = None
+        return result
+
+    def _solve_impl(self, resume_cells,
+                    between: Optional[Span] = None) -> DenseSolveResult:
+        """The solve; `between`: a traced solve's open span between
+        levels (dense_enter, then each level's dense_record, then
+        dense_exit), ended here."""
         g, t, ckpt = self.game, self.tables, self.checkpointer
         nc = t.ncells
         cuda = self.device.type == "cuda"
@@ -967,6 +1021,7 @@ class DenseSolver:
                         f"{cells.dtype} {tuple(cells.shape)}")
                 if saved is not None:
                     saved[L] = cells.cpu().numpy()
+                    self.host_syncs += 1
             child_flat = resume_cells[K].to(self.device).reshape(-1)
             start_L = K - 1
             if self.logger is not None:
@@ -979,11 +1034,13 @@ class DenseSolver:
              for L in range(start_L + 1)})
         computed_encodable = 0
         nmiss: Dict[int, torch.Tensor] = {}
+        tree = self._tree
         for L in range(start_L, -1, -1):
             P, C = len(t.profiles[L]), t.class_size[L]
             self.progress = {"phase": "backward", "level": L, "classes": P}
-            sp = Span("backward", log=False, level=L, classes=P,
-                      class_size=C)
+            if between is not None:
+                between.end()
+            sp = Span("backward", log=False, level=L, tree=tree)
             encodable_total += P * C
             computed_encodable += P * C
             level_cells, nm = self._backward_level(L, child_flat)
@@ -991,20 +1048,34 @@ class DenseSolver:
                 nmiss[L] = nm
             child_flat = level_cells.reshape(-1)
             if saved is not None or ckpt is not None:
+                dl = (None if tree is None else Span(
+                    "dense_download", tree=tree, detail=True, level=L))
                 host = level_cells.cpu().numpy()  # one download per level
+                if dl is not None:
+                    dl.end()
+                self.host_syncs += 1
                 if saved is not None:
                     saved[L] = host
                 if ckpt is not None:
-                    with trace_span("checkpoint", level=L, kind="level"):
+                    with trace_span("checkpoint", level=L, kind="level",
+                                    tree=tree):
                         ckpt.save_dense_level(L, host)
+            sp.stop()
+            if tree is not None:
+                between = Span("dense_record", tree=tree, detail=True,
+                               level=L)
             sp.end()
             if self.logger is not None:
                 self.logger.log({"phase": "dense_backward", "level": L,
                                  "classes": P, "class_size": C})
             self.status_tracker.backward_level(L, P * C, sp.secs)
             flightrec.boundary("backward", L)
+        if between is not None:
+            between.end()
+            between = Span("dense_exit", tree=tree, detail=True)
 
         root_cell = int(child_flat[0])  # synchronises with the device
+        self.host_syncs += 1
         value, remoteness = root_cell & 3, root_cell >> 2
         solve_secs = time.perf_counter() - t0
 
@@ -1045,6 +1116,7 @@ class DenseSolver:
             # (each still exact; a miss costs a global read, not a retry).
             "gather_nmiss_per_level": {L: int(v) for L, v in nmiss.items()},
         }
+        self.host_syncs += len(nmiss)
         stats["gather_nmiss"] = sum(stats["gather_nmiss_per_level"].values())
         # Each kernel's launches in this solve, by name (the wrappers'
         # counts; 0 on the CPU, which takes the plain versions): how a
@@ -1063,4 +1135,6 @@ class DenseSolver:
         if self.logger is not None:
             self.logger.log({"phase": "done", **stats})
         record_solve(g.name, positions, solve_secs)
+        if between is not None:
+            between.end()
         return DenseSolveResult(g, t, value, remoteness, saved, stats)

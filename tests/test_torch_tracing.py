@@ -178,7 +178,10 @@ def test_verbose_prints_the_records(capsys):
 
 def test_span_fans_out_to_logger_registry_and_sink():
     clock, logger, reg = FakeClock(), ListLogger(), MetricsRegistry()
+    # The fake clock stands for CLOCK_REALTIME from the epoch: ts is its
+    # reading in microseconds.
     sink = TraceEventSink()
+    sink.offset_ns = sink.base_ns = 0
     prev = set_trace_sink(sink)
     try:
         sp = Span("forward", logger=logger, registry=reg, clock=clock,
