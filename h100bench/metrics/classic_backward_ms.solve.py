@@ -1,6 +1,6 @@
 """The classic engine's backward per solve, in ms: the result's
 stats["secs_backward"] summed over the traced window's solves / solves.
-Moves solve_pos_per_s."""
+Moves solve_ms."""
 
 
 def read(ctx):

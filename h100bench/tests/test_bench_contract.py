@@ -72,6 +72,40 @@ def test_the_traced_rate_reads_all_the_window():
     assert read(dict(ctx, solves=0)) is None
 
 
+def test_the_result_line_reports_the_window_per_solve(tmp_path, monkeypatch):
+    """solve_ms: the window's time over its solves, in ms, in a CPU run of
+    the dense cell at 4x4: every solve of the closed loop counts, a slow
+    one as much as the rest."""
+    import argparse
+
+    import torch
+
+    import run
+    from conftest import small_root
+
+    torch.set_num_threads(2)
+    monkeypatch.setenv("GAMESMAN_DENSE_COUNTS_FILE", "0")
+    seen = {}
+    drive = run.DRIVERS["solve_loop"]
+
+    def keep(r, args, device):
+        seen.update(drive(r, args, device))
+        return seen
+
+    monkeypatch.setitem(run.DRIVERS, "solve_loop", keep)
+    cell = argparse.Namespace(workload="c4_5x5_dense.solve", seed=2 ** 33 + 1,
+                              seconds=1.2, trace=0, rates=None)
+    out = run.run_cell(cell, "cpu", root=small_root(tmp_path))
+    assert out["correct"], out["checks"]
+    ctx = seen["ctx"]
+    assert len(ctx["walls"]) == ctx["solves"] >= 2
+    assert sum(ctx["walls"]) <= ctx["window_s"]
+    assert out["metrics"]["solve_ms"] == {
+        "value": 1e3 * ctx["window_s"] / ctx["solves"], "unit": "ms"}
+    assert set(out["metrics"]) == {"setup_s", "solve_ms",
+                                   "solve_peak_mem_gib"}
+
+
 def test_every_cell_resolves_to_its_files(tmp_path):
     """The listed cells, and the unlisted ones once entered."""
     import run
