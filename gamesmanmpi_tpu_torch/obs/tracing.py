@@ -45,9 +45,15 @@ The dense solve's spans (solve/dense.py), each with its parent:
 to the next level), and ``dense_exit`` (the root read, reach and miss
 counts, stats); ``backward`` over ``dense_pack`` (the level's constants
 built and sent up), ``dense_launch`` (the rest of the enqueue),
-``dense_download`` (the blocking copy of the level's cells) and
-``checkpoint``. Beside them the solve counts ``host_syncs``, its
-blocking reads of device values.
+``dense_download`` (the level's cells to the host: on the card a pinned
+block from torch's caching host allocator and the copy's enqueue, with
+no wait unless a seal follows; the blocking ``.cpu()`` on the CPU or
+where no block can be pinned) and ``checkpoint``. Beside them the solve
+counts ``host_syncs``, its blocking reads of device values (a level's
+download only where the host waits for it), ``pinned_downloads``, the
+levels that went down into pinned memory without a wait, and
+``pinned_alloc_bytes``, the bytes the host allocator newly pinned during
+the solve (0 once its cache holds a solve's blocks).
 
 **The clock.** A span times itself on ``time.perf_counter``
 (CLOCK_MONOTONIC; injectable with ``clock=`` so timing is testable
@@ -65,7 +71,8 @@ files overlay. A span's clock reading and its range's stamp are two
 readings a few microseconds apart, and further where the host stalls
 between them (single offsets of 0.1-0.3 ms on the card). A span adds no device synchronisation,
 so the engines end their spans where they already wait for the device
-(a level's host copy, a dedup count).
+(a classic level's host copy, a dedup count) or, in the dense solve,
+where the host has enqueued its work: there a span times the host.
 """
 
 from __future__ import annotations

@@ -83,12 +83,23 @@ complete (``dense_NNNN.npz``), and a rerun rechains from the contiguous
 sealed run that ends at the top level, through the same path as
 ``solve(resume_cells=...)``.
 
+**Host tables** (``store_tables`` or a checkpointer): on the card each
+level's cells go down into pinned host memory from torch's caching host
+allocator, issued without a wait on the stream the level kernels run on,
+and the result's ``cells[L]`` is that memory. The solve's blocking read
+of the root, on the same stream, comes after every copy, so the result
+is whole when ``solve`` returns; only a seal waits for its level before
+then. A result that is kept keeps its blocks, and a dropped one's go back
+to the allocator's cache for the next solve. A level whose pinned block
+cannot be had (a board larger than the host can pin) goes down by the
+blocking pageable copy, as on the CPU.
+
 Records (``logger=``), the reference's: one ``dense_backward`` record per
 level (``classes``, ``class_size``), ``dense_backward_resume`` when a
 directory is resumed, and ``done``. Beside them each level runs under a
 ``backward`` span that writes no record (the registry's
 ``gamesman_span_seconds`` and the Chrome trace sink) and ends at the
-level's host copy when one is taken, and each seal under a
+level's host copy when one is issued, and each seal under a
 ``checkpoint`` span. A traced solve (``solve``) adds the spans that
 tile it and its count of blocking device reads in ``stats["trace"]``.
 ``progress`` is replaced per level for the heartbeat (``heartbeat_secs``
@@ -458,6 +469,16 @@ class DenseSolveResult:
         return cell & 3, cell >> 2
 
 
+def _pinned_total(device: torch.device) -> int:
+    """Bytes torch's caching host allocator has pinned in this process so
+    far (each new block at its rounded size; blocks handed out again from
+    its cache add nothing); 0 off the card."""
+    if device.type != "cuda":
+        return 0
+    return int(torch.cuda.host_memory_stats().get(
+        "allocated_bytes.allocated", 0))
+
+
 # Reachable-position counts are a property of the board, not the solve:
 # one sweep per board per process, reused by every later solve, and the
 # counts file carries them across processes.
@@ -676,10 +697,14 @@ class DenseSolver:
         #: or "process" (None before it ran)
         self.reach_counts_source: Optional[str] = None
         #: the solve's blocking reads of device values (each level's
-        #: download, each per-level miss count, each reach count of a
-        #: sweep, the root; the same sites count on the CPU), reset at
-        #: each solve's entry
+        #: download that the host waits for: a seal's, or a pageable
+        #: one on the card; each per-level miss count, each reach count
+        #: of a sweep, the root; the same sites count on the CPU), reset
+        #: at each solve's entry
         self.host_syncs = 0
+        #: the solve's levels whose cells went down into pinned memory
+        #: without a wait (0 on the CPU), reset at each solve's entry
+        self.pinned_downloads = 0
         #: the solve's span tree (None unless traced)
         self._tree: Optional[SpanTree] = None
 
@@ -897,6 +922,32 @@ class DenseSolver:
         shards (a tensor or None)."""
         return self._run_level(L, False, self._replicate(child_flat))
 
+    def _download(self, cells: torch.Tensor, wait: bool) -> np.ndarray:
+        """A level's [P, C] cells on the host.
+
+        On the card they go into a pinned block of torch's caching host
+        allocator, the copy issued on the current stream (the level
+        kernels'), so the solve's root read comes after it; the host
+        waits for this copy alone only where `wait` says it reads the
+        bytes before then (a seal). Elsewhere, or where the block cannot
+        be pinned, the copy is the blocking ``.cpu()``. ``host_syncs``
+        counts the levels the host waits for: a seal's on any device, a
+        pageable one on the card."""
+        if self.device.type == "cuda":
+            try:
+                host = torch.empty(cells.shape, dtype=torch.uint8,
+                                   pin_memory=True)
+            except RuntimeError:  # more than the host can pin
+                host = None
+            if host is not None:
+                host.copy_(cells, non_blocking=not wait)
+                self.pinned_downloads += int(not wait)
+                self.host_syncs += int(wait)
+                return host.numpy()
+            wait = True  # the pageable copy blocks
+        self.host_syncs += int(wait)
+        return cells.cpu().numpy()
+
     # -- the solve ----------------------------------------------------------
 
     def _checkpoint_resume(self) -> Optional[Dict[int, Optional[torch.Tensor]]]:
@@ -952,12 +1003,18 @@ class DenseSolver:
         ``backward`` with its ``dense_pack``, ``dense_launch`` and
         ``dense_download`` and a ``dense_record`` after it, then
         ``dense_exit``), and ``stats["trace"]`` holds their counts and
-        seconds and the solve's ``host_syncs``.
+        seconds, the solve's ``host_syncs``, its ``pinned_downloads``
+        and ``pinned_alloc_bytes``, the bytes torch's caching host
+        allocator newly pinned during the solve (0 on the CPU, and on the
+        card once the cache holds a solve's blocks).
         """
         self.host_syncs = 0
+        self.pinned_downloads = 0
         tree = SpanTree() if tracing_on() else None
         root = enter = None
+        pinned0 = 0
         if tree is not None:
+            pinned0 = _pinned_total(self.device)
             root = Span("dense_solve", tree=tree, detail=True)
             enter = Span("dense_enter", tree=tree, detail=True)
         self._tree = tree
@@ -971,8 +1028,11 @@ class DenseSolver:
                 result = self._solve_impl(resume_cells, enter)
             if tree is not None:
                 root.end()
-                result.stats["trace"] = {**tree.finish(),
-                                         "host_syncs": self.host_syncs}
+                result.stats["trace"] = {
+                    **tree.finish(), "host_syncs": self.host_syncs,
+                    "pinned_downloads": self.pinned_downloads,
+                    "pinned_alloc_bytes": (_pinned_total(self.device)
+                                           - pinned0)}
         finally:
             self._tree = None
         return result
@@ -1050,10 +1110,9 @@ class DenseSolver:
             if saved is not None or ckpt is not None:
                 dl = (None if tree is None else Span(
                     "dense_download", tree=tree, detail=True, level=L))
-                host = level_cells.cpu().numpy()  # one download per level
+                host = self._download(level_cells, wait=ckpt is not None)
                 if dl is not None:
                     dl.end()
-                self.host_syncs += 1
                 if saved is not None:
                     saved[L] = host
                 if ckpt is not None:

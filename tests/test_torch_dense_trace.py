@@ -7,7 +7,8 @@ and land once in stats["trace"], the registry and the sink; the
 program's profiler export holds the same spans on the sink's clock. Off,
 the level loop builds no span tree, opens no profiler range and reads
 the clock no more often than its one backward span needs. The count of
-blocking device reads is held to a hand count of the board's sync sites.
+blocking device reads is held to a hand count of the board's sync sites:
+a level's download is one only where a seal reads it before the root.
 """
 
 import json
@@ -63,7 +64,10 @@ def _events(sink, solve=None):
 def test_traced_solve_records_every_span_with_parent_and_level(game, sink):
     r = DenseSolver(game, device="cpu").solve()
     tr = r.stats["trace"]
-    assert set(tr) == set(PARENT) | {"host_syncs"}
+    assert set(tr) == set(PARENT) | {"host_syncs", "pinned_downloads",
+                                     "pinned_alloc_bytes"}
+    # The CPU's cells are its own: nothing goes down into pinned memory.
+    assert tr["pinned_downloads"] == tr["pinned_alloc_bytes"] == 0
     for name in PER_LEVEL:
         assert tr[name]["n"] == LEVELS, name
     for name in ("dense_solve", "dense_enter", "dense_exit"):
@@ -208,12 +212,30 @@ def test_host_syncs_match_the_hand_count(game, sink, swept, monkeypatch):
         monkeypatch.delitem(dense._REACH_COUNTS, (4, 4, 4))
     r = DenseSolver(game, device="cpu").solve()
     tr = r.stats["trace"]
-    # A download per level, a miss count per level below the top, the
-    # root; a sweep reads a reach count per level above 0.
-    assert tr["host_syncs"] == LEVELS + (LEVELS - 1) + 1 + (
+    # A miss count per level below the top, the root; a sweep reads a
+    # reach count per level above 0. The downloads count none: the host
+    # waits for none of them before the root.
+    assert tr["host_syncs"] == (LEVELS - 1) + 1 + (
         LEVELS - 1 if swept else 0)
     assert r.stats["reach_counts_source"] == ("sweep" if swept
                                               else "process")
+
+
+def test_a_checkpointed_solve_waits_once_per_sealed_level(game, sink,
+                                                          tmp_path):
+    """A seal reads its level's bytes before the root read, so each
+    sealed level is one wait in the hand count; the sealed files hold
+    the result's cells."""
+    ckpt = LevelCheckpointer(str(tmp_path / "c"))
+    r = DenseSolver(game, device="cpu", checkpointer=ckpt).solve()
+    tr = r.stats["trace"]
+    assert tr["checkpoint"]["n"] == LEVELS
+    assert tr["host_syncs"] == LEVELS + (LEVELS - 1) + 1
+    assert tr["pinned_downloads"] == 0
+    assert ckpt.dense_levels() == list(range(LEVELS))
+    for L in range(LEVELS):
+        sealed = ckpt.load_dense_level(L)
+        assert sealed.tobytes() == r.cells[L].tobytes(), L
 
 
 def test_traced_checkpointed_solve_keeps_its_records(game, sink, tmp_path):

@@ -1,4 +1,5 @@
-"""A traced dense solve on the card: the profiler's clock and the program's.
+"""A traced dense solve on the card: the profiler's clock and the program's,
+and each level's cells going down into pinned host memory.
 
 Marked `cuda`: skips without an NVIDIA card. Imports nothing of JAX; on
 the machine with the card run it without the repo's conftest:
@@ -7,19 +8,26 @@ the machine with the card run it without the repo's conftest:
         tests/test_torch_dense_trace_cuda.py
 
 - The CLI's 5x5 dense solve under --profile-dir and --trace-events: each
-  level's device-to-host copy is issued inside that level's
-  dense_download range of the profile and runs inside it (20 us of
-  slack at each end), and each range of the profile lies inside its span
-  of the --trace-events file (the same slack) and begins within 100 us
-  of it. The device copies can be placed only where the profile's
-  device clock keeps to its host clock: no copy may start more than the
-  slack before the host call that issued it, nor end more than the slack
-  after that call returns. Where CUPTI's conversion drifts (up to 5.0 ms
-  early by half a second into a session on torch 2.11.0+cu128), that
-  check fails first and names it.
+  level's device-to-pinned copy is issued inside that level's
+  dense_download range of the profile (joined to its issuing call by
+  correlation id, as the root and miss-count reads issue pinned copies
+  too; the copy itself may run after the range ends), one per range, and
+  no copy of the solve goes to pageable memory. Each range of the
+  profile lies inside its span of the --trace-events file (20 us of
+  slack at each end) and begins within 100 us of it. The device copies
+  can be placed only where the profile's device clock keeps to its host
+  clock: no copy may start more than the slack before the host call
+  that issued it. Where CUPTI's conversion drifts (up to 5.0 ms early by
+  half a second into a session on torch 2.11.0+cu128), that check fails
+  first and names it.
 - A profiler with CUDA activity alone (the benchmark's) turns the
   program's tracing on, records no range of its own, and the solve's
-  count of blocking device reads meets its hand count.
+  count of blocking device reads meets its hand count; a warm solve pins
+  no new block for its cells.
+- A kept result's cells are pinned and stay as they were while later
+  solves take their blocks from the allocator's cache; a checkpointed
+  solve seals its cells; a level that cannot be pinned goes down by the
+  pageable copy, with the same cells.
 """
 
 import json
@@ -64,39 +72,27 @@ def test_cli_profile_holds_each_download_inside_its_span(tmp_path):
                 ("dense_", "backward")):
             ranges.setdefault(e["name"], []).append(
                 (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-    copies = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
-                     "Pageable" in e["name"])
-                    for e in doc["traceEvents"]
-                    if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"])
     downloads = sorted(ranges["dense_download"])
     assert len(downloads) == 26
-    pageable = [c for c in copies if c[2]]
-    assert len(pageable) == 26, len(pageable)
-    issued = sorted(_issuing_calls(doc, "Pageable"))
-    assert len(issued) == 26, len(issued)
-    for (a, b), (t, *_) in zip(downloads, issued):
-        assert a <= t <= b, (a, t, b)
+    pageable = [e["name"] for e in doc["traceEvents"]
+                if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]
+                and "Pageable" in e["name"]]
+    assert not pageable, pageable
+    issued = sorted(_issuing_calls(doc, "Pinned"))
     early = max(t0 - s for t0, _, s, _ in issued)
-    late = max(e - t1 for _, t1, _, e in issued)
-    assert early <= SLACK_US and late <= SLACK_US, (
-        f"a download's copy starts up to {early:.1f} us before the host "
-        f"call that issued it, or ends up to {late:.1f} us after the call "
-        f"returns: the profile's device clock has drifted from its host "
-        f"clock in this session")
-    first, last = [], []
+    assert early <= SLACK_US, (
+        f"a copy starts up to {early:.1f} us before the host call that "
+        f"issued it: the profile's device clock has drifted from its "
+        f"host clock in this session")
+    after = []
     for i, (a, b) in enumerate(downloads):
-        mine_copies = [(s, t) for s, t, _ in copies
-                       if a - SLACK_US <= s <= b + SLACK_US]
-        near = [(round(s - a, 3), round(t - a, 3), p) for s, t, p in copies
-                if a - 50_000 <= s <= b + 50_000]
+        mine_copies = [c for c in issued if a <= c[0] <= b]
+        near = [(round(c[0] - a, 3), round(c[2] - a, 3)) for c in issued
+                if a - 50_000 <= c[0] <= b + 50_000]
         assert len(mine_copies) == 1, (i, round(b - a, 3), near)
-        s, t = mine_copies[0]
-        assert a - SLACK_US <= s and t <= b + SLACK_US, (i, a, b, s, t)
-        first.append(s - a)
-        last.append(b - t)
-    print(f"\ndownloads in their spans: 26 of 26; copy start after span "
-          f"start {min(first):.3f}..{max(first):.3f} us, span end after "
-          f"copy end {min(last):.3f}..{max(last):.3f} us")
+        after.append(mine_copies[0][3] - b)
+    print(f"\ndownloads issued in their spans: 26 of 26, to pinned memory; "
+          f"copy end after span end {min(after):.3f}..{max(after):.3f} us")
     _assert_overlay(mine, ranges)
 
 
@@ -155,6 +151,7 @@ def test_a_cuda_only_profiler_turns_tracing_on(tmp_path):
     from torch.profiler import ProfilerActivity, profile
 
     from gamesmanmpi_tpu_torch.games import get_game
+    from gamesmanmpi_tpu_torch.ops import dense_level
     from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
 
     game = get_game("connect4:w=5,h=5")
@@ -165,9 +162,109 @@ def test_a_cuda_only_profiler_turns_tracing_on(tmp_path):
     tr = r.stats["trace"]
     print(f"\n5x5 stats['trace']: {json.dumps(tr)}")
     assert tr["backward"]["n"] == 26
-    # 26 downloads, 25 miss counts (the top level has none), the root.
-    assert tr["host_syncs"] == 52
+    # 25 miss counts (the top level has none) and the root; no level's
+    # download is waited for.
+    assert tr["host_syncs"] == 26
+    assert tr["pinned_downloads"] == 26
+    # The warm solve's cells go into the first solve's blocks again. What
+    # it may still pin is the level packs' staging (ops/dense_level
+    # kernel_pack, each freed once its upload is enqueued), until the
+    # cache holds as many blocks as the host has had in flight ahead of
+    # the device: at most one block per level, at its rounded size.
+    packs = sum(1 << (dense_level.kernel_pack(r._tables, L, False).nbytes
+                      - 1).bit_length() for L in range(26))
+    assert tr["pinned_alloc_bytes"] <= packs, (tr["pinned_alloc_bytes"],
+                                               packs)
     path = tmp_path / "cuda_only.json"
     prof.export_chrome_trace(str(path))
     cats = {e.get("cat") for e in json.loads(path.read_text())["traceEvents"]}
     assert not cats & {"user_annotation", "gpu_user_annotation"}, cats
+
+
+def test_a_kept_result_is_never_overwritten():
+    """One result held while later solves run: its cells are pinned and
+    stay byte for byte as they were; the later solves' cells are the
+    same (the solve is deterministic) in blocks of their own."""
+    _need_card()
+    from gamesmanmpi_tpu_torch.games import get_game
+    from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
+
+    game = get_game("connect4:w=5,h=5")
+    DenseSolver(game).solve()  # its blocks go back to the cache
+    kept = DenseSolver(game).solve()
+    before = {L: c.copy() for L, c in kept.cells.items()}
+    assert len(before) == 26
+    for _ in range(2):
+        later = DenseSolver(game).solve()
+        for L, c in later.cells.items():
+            assert c.ctypes.data != kept.cells[L].ctypes.data, L
+            assert c.tobytes() == before[L].tobytes(), L
+        del later
+    for L, c in kept.cells.items():
+        assert torch.from_numpy(c).is_pinned(), L
+        assert c.tobytes() == before[L].tobytes(), L
+
+
+def test_a_checkpointed_solve_seals_its_cells(tmp_path):
+    """Each seal waits for its level alone and reads the bytes the
+    result keeps: one host wait per sealed level in the hand count."""
+    _need_card()
+    from gamesmanmpi_tpu_torch.games import get_game
+    from gamesmanmpi_tpu_torch.obs.tracing import (
+        TraceEventSink,
+        set_trace_sink,
+    )
+    from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
+    from gamesmanmpi_tpu_torch.utils.checkpoint import LevelCheckpointer
+
+    game = get_game("connect4:w=5,h=5")
+    ckpt = LevelCheckpointer(str(tmp_path / "ckpt"))
+    prev = set_trace_sink(TraceEventSink())
+    try:
+        r = DenseSolver(game, checkpointer=ckpt).solve()
+    finally:
+        set_trace_sink(prev)
+    tr = r.stats["trace"]
+    assert tr["checkpoint"]["n"] == 26
+    assert tr["host_syncs"] == 26 + 25 + 1
+    assert tr["pinned_downloads"] == 0
+    assert ckpt.dense_levels() == list(range(26))
+    for L in range(26):
+        assert torch.from_numpy(r.cells[L]).is_pinned(), L
+        assert ckpt.load_dense_level(L).tobytes() == r.cells[L].tobytes(), L
+
+
+def test_an_unpinnable_level_falls_back_to_the_pageable_copy(monkeypatch):
+    """Where the host allocator cannot pin a level's block, the level
+    goes down by the blocking pageable copy, one host wait each, into the
+    same cells as the pinned path's."""
+    _need_card()
+    from gamesmanmpi_tpu_torch.games import get_game
+    from gamesmanmpi_tpu_torch.obs.tracing import (
+        TraceEventSink,
+        set_trace_sink,
+    )
+    from gamesmanmpi_tpu_torch.solve import dense
+
+    game = get_game("connect4:w=5,h=5")
+    pinned = dense.DenseSolver(game).solve()
+    empty = torch.empty
+
+    def no_pin(*a, **k):
+        if k.get("pin_memory"):
+            raise RuntimeError("CUDA error: out of memory")
+        return empty(*a, **k)
+
+    monkeypatch.setattr(dense.torch, "empty", no_pin)
+    prev = set_trace_sink(TraceEventSink())
+    try:
+        r = dense.DenseSolver(game).solve()
+    finally:
+        set_trace_sink(prev)
+    monkeypatch.undo()
+    tr = r.stats["trace"]
+    assert tr["pinned_downloads"] == 0
+    assert tr["host_syncs"] == 26 + 25 + 1
+    for L in range(26):
+        assert not torch.from_numpy(r.cells[L]).is_pinned(), L
+        assert r.cells[L].tobytes() == pinned.cells[L].tobytes(), L
