@@ -1002,11 +1002,12 @@ class DenseSolver:
         spans tile it under ``dense_solve`` (``dense_enter``, per level
         ``backward`` with its ``dense_pack``, ``dense_launch`` and
         ``dense_download`` and a ``dense_record`` after it, then
-        ``dense_exit``), and ``stats["trace"]`` holds their counts and
-        seconds, the solve's ``host_syncs``, its ``pinned_downloads``
-        and ``pinned_alloc_bytes``, the bytes torch's caching host
-        allocator newly pinned during the solve (0 on the CPU, and on the
-        card once the cache holds a solve's blocks).
+        ``dense_exit`` over ``dense_drain``, the root read that waits for
+        every queued kernel and copy), and ``stats["trace"]`` holds their
+        counts and seconds, the solve's ``host_syncs``, its
+        ``pinned_downloads`` and ``pinned_alloc_bytes``, the bytes torch's
+        caching host allocator newly pinned during the solve (0 on the
+        CPU, and on the card once the cache holds a solve's blocks).
         """
         self.host_syncs = 0
         self.pinned_downloads = 0
@@ -1133,7 +1134,11 @@ class DenseSolver:
             between.end()
             between = Span("dense_exit", tree=tree, detail=True)
 
+        drain = (None if tree is None
+                 else Span("dense_drain", tree=tree, detail=True))
         root_cell = int(child_flat[0])  # synchronises with the device
+        if drain is not None:
+            drain.end()
         self.host_syncs += 1
         value, remoteness = root_cell & 3, root_cell >> 2
         solve_secs = time.perf_counter() - t0

@@ -163,11 +163,13 @@ def _unpack(geom, pack: np.ndarray, for_reach: bool) -> dict:
 def test_kernel_layout_equals_level_consts(for_reach):
     """Each level's kernel pack, decoded as the kernel reads it, equals
     level_consts field by field (and the binomials the tables'), in the
-    board's words and the 64-bit ones."""
+    board's words, 6x5's (64-bit bitboards, 32-bit ranks) and the 64-bit
+    ones."""
     t = dense.tables_for(4, 4, 4)
     fields = (("topstone", "parent_row") if for_reach
               else ("newbit", "valid", "move_row", "move_fill"))
     for words in (dense_level.word_widths(4, 4),
+                  dense_level.Words(64, 32, 32),
                   dense_level.Words(64, 64, 64)):
         for L in range(t.ncells + 1):
             g = dataclasses.replace(dense_level.level_geom(t, L),

@@ -9,6 +9,8 @@ the level loop builds no span tree, opens no profiler range and reads
 the clock no more often than its one backward span needs. The count of
 blocking device reads is held to a hand count of the board's sync sites:
 a level's download is one only where a seal reads it before the root.
+The root read, the host's wait for the device, is a span of its own
+inside dense_exit.
 """
 
 import json
@@ -37,7 +39,8 @@ PER_LEVEL = ("backward", "dense_pack", "dense_launch", "dense_download",
 PARENT = {"dense_solve": None, "dense_enter": "dense_solve",
           "backward": "dense_solve", "dense_pack": "backward",
           "dense_launch": "backward", "dense_download": "backward",
-          "dense_record": "dense_solve", "dense_exit": "dense_solve"}
+          "dense_record": "dense_solve", "dense_exit": "dense_solve",
+          "dense_drain": "dense_exit"}
 
 
 @pytest.fixture(scope="module")
@@ -70,11 +73,11 @@ def test_traced_solve_records_every_span_with_parent_and_level(game, sink):
     assert tr["pinned_downloads"] == tr["pinned_alloc_bytes"] == 0
     for name in PER_LEVEL:
         assert tr[name]["n"] == LEVELS, name
-    for name in ("dense_solve", "dense_enter", "dense_exit"):
+    for name in ("dense_solve", "dense_enter", "dense_exit", "dense_drain"):
         assert tr[name]["n"] == 1, name
     solve = _events(sink)[-1]["args"]["solve"]
     evs = _events(sink, solve)
-    assert len(evs) == 3 + LEVELS * len(PER_LEVEL)
+    assert len(evs) == 4 + LEVELS * len(PER_LEVEL)
     for e in evs:
         assert e["args"]["parent"] == PARENT[e["name"]], e
         assert ("level" in e["args"]) == (e["name"] in PER_LEVEL), e
@@ -110,6 +113,19 @@ def test_the_spans_tile_the_solve(game, sink):
                                         "dense_record", "dense_exit"})
     _nested_within(evs, "backward", {"dense_pack", "dense_launch",
                                      "dense_download"})
+    _nested_within(evs, "dense_exit", {"dense_drain"})
+
+
+def test_the_drain_span_is_the_root_read_inside_exit(game, sink):
+    """dense_drain is one span per solve, a child of dense_exit, and no
+    longer than it: the root read alone, not the reach and miss counts
+    or the stats after it."""
+    tr = DenseSolver(game, device="cpu").solve().stats["trace"]
+    assert tr["dense_drain"]["n"] == tr["dense_exit"]["n"] == 1
+    assert 0 <= tr["dense_drain"]["s"] <= tr["dense_exit"]["s"]
+    evs = _events(sink, _events(sink)[-1]["args"]["solve"])
+    (drain,) = [e for e in evs if e["name"] == "dense_drain"]
+    assert drain["args"]["parent"] == "dense_exit"
 
 
 def test_registry_takes_each_detail_span_once_per_solve(game, sink,
@@ -119,7 +135,8 @@ def test_registry_takes_each_detail_span_once_per_solve(game, sink,
     DenseSolver(game, device="cpu").solve()
     text = reg.render_prometheus()
     for name in ("dense_solve", "dense_enter", "dense_pack", "dense_launch",
-                 "dense_download", "dense_record", "dense_exit"):
+                 "dense_download", "dense_record", "dense_exit",
+                 "dense_drain"):
         assert f'gamesman_span_seconds_count{{span="{name}"}} 1' in text
     # backward keeps its own per-level series, without payload counters.
     assert f'gamesman_span_seconds_count{{span="backward"}} {LEVELS}' in text

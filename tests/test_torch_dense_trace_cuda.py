@@ -22,8 +22,9 @@ the machine with the card run it without the repo's conftest:
   first and names it.
 - A profiler with CUDA activity alone (the benchmark's) turns the
   program's tracing on, records no range of its own, and the solve's
-  count of blocking device reads meets its hand count; a warm solve pins
-  no new block for its cells.
+  count of blocking device reads meets its hand count; the root read's
+  wait lies inside dense_exit; a warm solve pins no new block for its
+  cells.
 - A kept result's cells are pinned and stay as they were while later
   solves take their blocks from the allocator's cache; a checkpointed
   solve seals its cells; a level that cannot be pinned goes down by the
@@ -166,6 +167,9 @@ def test_a_cuda_only_profiler_turns_tracing_on(tmp_path):
     # download is waited for.
     assert tr["host_syncs"] == 26
     assert tr["pinned_downloads"] == 26
+    # The root read that waits for the queued kernels and copies is the
+    # drain inside dense_exit.
+    assert 0 < tr["dense_drain"]["s"] <= tr["dense_exit"]["s"]
     # The warm solve's cells go into the first solve's blocks again. What
     # it may still pin is the level packs' staging (ops/dense_level
     # kernel_pack, each freed once its upload is enqueued), until the
