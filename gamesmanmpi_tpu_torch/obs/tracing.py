@@ -44,16 +44,18 @@ The dense solve's spans (solve/dense.py), each with its parent:
 ``dense_record`` (the level's fan-out, record, status and boundary, up
 to the next level), and ``dense_exit`` (the root read, reach and miss
 counts, stats) over ``dense_drain`` (the root read alone: the host's
-wait for every kernel and copy the solve queued); ``backward`` over
+wait for every kernel on the kernels' stream and every copy on the copy
+stream that the solve queued); ``backward`` over
 ``dense_pack`` (the level's constants built and sent up),
 ``dense_launch`` (the rest of the enqueue), ``dense_download`` (the
 level's cells to the host: on the card a pinned block from torch's
-caching host allocator and the copy's enqueue, with no wait unless a
+caching host allocator and the copy's enqueue on the solver's copy
+stream behind an event on the kernels' stream, with no wait unless a
 seal follows; the blocking ``.cpu()`` on the CPU or where no block can
 be pinned) and ``checkpoint``. Beside them the solve counts
 ``host_syncs``, its blocking reads of device values (a level's download
-only where the host waits for it), ``pinned_downloads``, the levels that
-went down into pinned memory without a wait, and
+only where the host waits for it), ``pinned_downloads``, the levels
+whose copy ran on the copy stream without a wait, and
 ``pinned_alloc_bytes``, the bytes the host allocator newly pinned during
 the solve (0 once its cache holds a solve's blocks).
 

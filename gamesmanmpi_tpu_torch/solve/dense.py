@@ -85,14 +85,17 @@ sealed run that ends at the top level, through the same path as
 
 **Host tables** (``store_tables`` or a checkpointer): on the card each
 level's cells go down into pinned host memory from torch's caching host
-allocator, issued without a wait on the stream the level kernels run on,
-and the result's ``cells[L]`` is that memory. The solve's blocking read
-of the root, on the same stream, comes after every copy, so the result
-is whole when ``solve`` returns; only a seal waits for its level before
-then. A result that is kept keeps its blocks, and a dropped one's go back
-to the allocator's cache for the next solve. A level whose pinned block
-cannot be had (a board larger than the host can pin) goes down by the
-blocking pageable copy, as on the CPU.
+allocator, issued without a wait on a copy stream of the solver's own
+once the level's kernel is done, so the copy runs under the next level's
+kernel (``LevelCopies``), and the result's ``cells[L]`` is that memory.
+Before the loop drops a level's cells the kernels' stream waits on that
+level's copy (the device holds two levels, as without the copy stream),
+and before the solve's blocking read of the root on the last one, so the
+result is whole when ``solve`` returns; only a seal waits for its level
+before then. A result that is kept keeps its blocks, and a dropped one's
+go back to the allocator's cache for the next solve. A level whose
+pinned block cannot be had (a board larger than the host can pin) goes
+down by the blocking pageable copy, as on the CPU.
 
 Records (``logger=``), the reference's: one ``dense_backward`` record per
 level (``classes``, ``class_size``), ``dense_backward_resume`` when a
@@ -479,6 +482,61 @@ def _pinned_total(device: torch.device) -> int:
         "allocated_bytes.allocated", 0))
 
 
+class LevelCopies:
+    """The order of a dense solve's downloads on the card: each level's
+    copy on a stream of its own, under the next level's kernel.
+
+    Once level L's kernel is enqueued, :meth:`release` makes the kernels'
+    stream wait on level L+1's copy, before the loop drops L+1's cells:
+    the caching allocator may hand that memory to level L-1, whose kernel
+    then starts only once the copy has read it. :meth:`copy` then records
+    an event on the kernels' stream, makes the copy stream wait on it,
+    issues level L's copy into the pinned block there (so torch's caching
+    host allocator records the block's use on the copy stream) and
+    records the copy's event. So copy L runs beside kernel L-1, a level
+    costs the longer of the two, not their sum, and the device holds two
+    levels as before (``record_stream`` would hold each level until its
+    copy is done: a third level's worth). A last :meth:`release`, before
+    the root read, makes the kernels' stream wait on the last copy, so
+    that read waits for every kernel and copy. Every wait is the device's
+    but a seal's (`wait`), which waits on its own copy's event.
+
+    kernels, copies: the two streams, the kernels' the current one;
+    written, copied: the kernel's and the copy's events, reused every
+    level (a wait holds what its event recorded when the wait was
+    issued); set_stream(stream): makes a stream current
+    (``torch.cuda.set_stream``: a level costs a few microseconds of host
+    time less than under the ``torch.cuda.stream`` context, which the
+    host-paced boards feel).
+    """
+
+    def __init__(self, kernels, copies, written, copied, set_stream):
+        self.kernels, self.copies = kernels, copies
+        self._written, self._copied = written, copied
+        self._set_stream = set_stream
+
+    def copy(self, host, cells, wait: bool) -> None:
+        """Level L's `cells` into the pinned `host` once its kernel is
+        done; with `wait` the host waits for this copy alone."""
+        self._written.record(self.kernels)
+        self.copies.wait_event(self._written)
+        self._set_stream(self.copies)
+        try:
+            host.copy_(cells, non_blocking=True)
+        finally:
+            self._set_stream(self.kernels)
+        self._copied.record(self.copies)
+        if wait:
+            self._copied.synchronize()
+
+    def release(self) -> None:
+        """The kernels' stream waits on the last copy issued: the deeper
+        level's, each level before its copy and before the loop drops
+        that level's cells, and once more before the root read (an event
+        never recorded is no wait)."""
+        self.kernels.wait_event(self._copied)
+
+
 # Reachable-position counts are a property of the board, not the solve:
 # one sweep per board per process, reused by every later solve, and the
 # counts file carries them across processes.
@@ -687,8 +745,12 @@ class DenseSolver:
         else:
             self._mesh = None
             self._shard_devices = [self.device]
+        #: the card's download stream and its reused events (LevelCopies)
+        self._copy_stream = self._copy_events = None
         if self.device.type == "cuda":
             torch.cuda.init()  # the allocator, for its peak statistics
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._copy_events = (torch.cuda.Event(), torch.cuda.Event())
         self.tables = tables_for(game.width, game.height, game.connect)
         self.block_elems = int(block_elems or DEFAULT_BLOCK_ELEMS)
         self._consts: dict = {}
@@ -702,8 +764,8 @@ class DenseSolver:
         #: of a sweep, the root; the same sites count on the CPU), reset
         #: at each solve's entry
         self.host_syncs = 0
-        #: the solve's levels whose cells went down into pinned memory
-        #: without a wait (0 on the CPU), reset at each solve's entry
+        #: the solve's levels whose copy ran on the copy stream without a
+        #: wait (0 on the CPU), reset at each solve's entry
         self.pinned_downloads = 0
         #: the solve's span tree (None unless traced)
         self._tree: Optional[SpanTree] = None
@@ -922,17 +984,19 @@ class DenseSolver:
         shards (a tensor or None)."""
         return self._run_level(L, False, self._replicate(child_flat))
 
-    def _download(self, cells: torch.Tensor, wait: bool) -> np.ndarray:
+    def _download(self, cells: torch.Tensor, wait: bool,
+                  copies: Optional[LevelCopies]) -> np.ndarray:
         """A level's [P, C] cells on the host.
 
         On the card they go into a pinned block of torch's caching host
-        allocator, the copy issued on the current stream (the level
-        kernels'), so the solve's root read comes after it; the host
-        waits for this copy alone only where `wait` says it reads the
-        bytes before then (a seal). Elsewhere, or where the block cannot
-        be pinned, the copy is the blocking ``.cpu()``. ``host_syncs``
-        counts the levels the host waits for: a seal's on any device, a
-        pageable one on the card."""
+        allocator, the copy issued on the solver's copy stream once the
+        level's kernel is done, to run under the next level's kernel
+        (LevelCopies); the solve's root read waits for it. The host waits
+        for this copy alone only where `wait` says it reads the bytes
+        before then (a seal). Elsewhere, or where the block cannot be
+        pinned, the copy is the blocking ``.cpu()`` on the kernels'
+        stream. ``host_syncs`` counts the levels the host waits for: a
+        seal's on any device, a pageable one on the card."""
         if self.device.type == "cuda":
             try:
                 host = torch.empty(cells.shape, dtype=torch.uint8,
@@ -940,7 +1004,7 @@ class DenseSolver:
             except RuntimeError:  # more than the host can pin
                 host = None
             if host is not None:
-                host.copy_(cells, non_blocking=not wait)
+                copies.copy(host, cells, wait)
                 self.pinned_downloads += int(not wait)
                 self.host_syncs += int(wait)
                 return host.numpy()
@@ -1005,7 +1069,8 @@ class DenseSolver:
         ``dense_exit`` over ``dense_drain``, the root read that waits for
         every queued kernel and copy), and ``stats["trace"]`` holds their
         counts and seconds, the solve's ``host_syncs``, its
-        ``pinned_downloads`` and ``pinned_alloc_bytes``, the bytes torch's
+        ``pinned_downloads`` (the levels whose copy ran on the copy stream)
+        and ``pinned_alloc_bytes``, the bytes torch's
         caching host allocator newly pinned during the solve (0 on the
         CPU, and on the card once the cache holds a solve's blocks).
         """
@@ -1022,10 +1087,16 @@ class DenseSolver:
         try:
             self.status_tracker.begin(game=self.game.name, engine="dense",
                                       world=1, rank=0)
+            # LevelCopies' set_stream makes its stream's device current
+            # too: the solve runs on the home device and gives the
+            # caller's back.
             with watched(lambda: self.progress, self.logger,
                          self.heartbeat_secs,
                          lambda: self.status_tracker.snapshot(
-                             progress=self.progress)):
+                             progress=self.progress)), (
+                    torch.cuda.device(self.device)
+                    if self.device.type == "cuda"
+                    else contextlib.nullcontext()):
                 result = self._solve_impl(resume_cells, enter)
             if tree is not None:
                 root.end()
@@ -1046,8 +1117,12 @@ class DenseSolver:
         g, t, ckpt = self.game, self.tables, self.checkpointer
         nc = t.ncells
         cuda = self.device.type == "cuda"
+        copies = None
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
+            copies = LevelCopies(
+                torch.cuda.current_stream(self.device), self._copy_stream,
+                *self._copy_events, torch.cuda.set_stream)
         launches0 = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
         if ckpt is not None:
@@ -1107,11 +1182,13 @@ class DenseSolver:
             level_cells, nm = self._backward_level(L, child_flat)
             if nm is not None:
                 nmiss[L] = nm
+            if copies is not None:
+                copies.release()  # level L+1's copy, before its memory goes
             child_flat = level_cells.reshape(-1)
             if saved is not None or ckpt is not None:
                 dl = (None if tree is None else Span(
                     "dense_download", tree=tree, detail=True, level=L))
-                host = self._download(level_cells, wait=ckpt is not None)
+                host = self._download(level_cells, ckpt is not None, copies)
                 if dl is not None:
                     dl.end()
                 if saved is not None:
@@ -1136,6 +1213,8 @@ class DenseSolver:
 
         drain = (None if tree is None
                  else Span("dense_drain", tree=tree, detail=True))
+        if copies is not None:
+            copies.release()  # the last level's copy, before the root read
         root_cell = int(child_flat[0])  # synchronises with the device
         if drain is not None:
             drain.end()

@@ -25,12 +25,20 @@ the machine with the card run it without the repo's conftest:
   count of blocking device reads meets its hand count; the root read's
   wait lies inside dense_exit; a warm solve pins no new block for its
   cells.
-- A kept result's cells are pinned and stay as they were while later
-  solves take their blocks from the allocator's cache; a checkpointed
+- Each level's copy runs on the solver's copy stream (the profile's
+  stream of each download's copy is not the kernels'); on 5x4 and 5x5
+  every level's host cells are the CPU solve's, and the device's peak
+  is two adjacent levels, as where every level goes down by the
+  pageable copy; the solve leaves the caller's stream and device
+  current.
+- A kept result's cells are the CPU solve's, pinned, and stay as they
+  were while later solves, each with its own copy stream, take their
+  blocks from the allocator's cache; a checkpointed
   solve seals its cells; a level that cannot be pinned goes down by the
   pageable copy, with the same cells.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -80,25 +88,35 @@ def test_cli_profile_holds_each_download_inside_its_span(tmp_path):
                 and "Pageable" in e["name"]]
     assert not pageable, pageable
     issued = sorted(_issuing_calls(doc, "Pinned"))
-    early = max(t0 - s for t0, _, s, _ in issued)
+    kernel_streams = {e["args"].get("stream") for e in doc["traceEvents"]
+                      if e.get("cat") == "kernel"
+                      and "dense_step" in e["name"]}
+    early = max(t0 - s for t0, _, s, _, _ in issued)
     assert early <= SLACK_US, (
         f"a copy starts up to {early:.1f} us before the host call that "
         f"issued it: the profile's device clock has drifted from its "
         f"host clock in this session")
-    after = []
+    after, copy_streams = [], set()
     for i, (a, b) in enumerate(downloads):
         mine_copies = [c for c in issued if a <= c[0] <= b]
         near = [(round(c[0] - a, 3), round(c[2] - a, 3)) for c in issued
                 if a - 50_000 <= c[0] <= b + 50_000]
         assert len(mine_copies) == 1, (i, round(b - a, 3), near)
         after.append(mine_copies[0][3] - b)
-    print(f"\ndownloads issued in their spans: 26 of 26, to pinned memory; "
+        copy_streams.add(mine_copies[0][4])
+    # Each level's copy runs on the solver's copy stream, not the
+    # kernels'.
+    assert kernel_streams and None not in kernel_streams, kernel_streams
+    assert len(copy_streams) == 1 and not copy_streams & kernel_streams, (
+        copy_streams, kernel_streams)
+    print(f"\ndownloads issued in their spans: 26 of 26, to pinned memory "
+          f"on stream {copy_streams}, the kernels on {kernel_streams}; "
           f"copy end after span end {min(after):.3f}..{max(after):.3f} us")
     _assert_overlay(mine, ranges)
 
 
 def _issuing_calls(doc, kind: str) -> list:
-    """(host call start, its return, copy start, copy end) of each
+    """(host call start, its return, copy start, copy end, stream) of each
     device-to-host copy of `kind` in the profile, joined to its call by
     correlation id."""
     host = {e["args"]["correlation"]: (float(e["ts"]),
@@ -107,7 +125,7 @@ def _issuing_calls(doc, kind: str) -> list:
             if e.get("cat") in ("cuda_runtime", "cuda_driver")
             and "correlation" in e.get("args", {})}
     return [(*host[e["args"]["correlation"]], float(e["ts"]),
-             float(e["ts"]) + float(e["dur"]))
+             float(e["ts"]) + float(e["dur"]), e["args"].get("stream"))
             for e in doc["traceEvents"]
             if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]
             and kind in e["name"]
@@ -185,10 +203,83 @@ def test_a_cuda_only_profiler_turns_tracing_on(tmp_path):
     assert not cats & {"user_annotation", "gpu_user_annotation"}, cats
 
 
+_CPU_CELLS: dict = {}
+
+
+def _cpu_cells(spec: str) -> dict:
+    """Every level's cells of the board's dense solve on the CPU (the
+    plain steps, no stream), solved once per test process."""
+    if spec not in _CPU_CELLS:
+        from gamesmanmpi_tpu_torch.games import get_game
+        from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
+
+        _CPU_CELLS[spec] = DenseSolver(get_game(spec),
+                                       device="cpu").solve().cells
+    return _CPU_CELLS[spec]
+
+
+@pytest.mark.parametrize("spec", ["connect4:w=5,h=4", "connect4:w=5,h=5"])
+def test_copies_on_their_stream_keep_the_cells_and_two_levels(spec,
+                                                              monkeypatch):
+    """Each level's copy on the solver's copy stream: every level's host
+    cells are the CPU solve's, and the device holds two adjacent levels,
+    the same peak as where every level goes down by the blocking pageable
+    copy on the kernels' stream (no block pinned). Each solve starts from
+    an empty device cache (a block the allocator hands out again may be
+    larger than its request, and the peak counts the block), and its
+    peak is taken above what was allocated before it (the first solver's
+    level packs are gone before the second solve)."""
+    _need_card()
+    from gamesmanmpi_tpu_torch.games import get_game
+    from gamesmanmpi_tpu_torch.solve import dense
+
+    game = get_game(spec)
+    dense.DenseSolver(game).solve()  # the board's reach counts, cached
+
+    def solve_above_base():
+        solver = dense.DenseSolver(game)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        stream = torch.cuda.current_stream()
+        device = torch.cuda.current_device()
+        result = solver.solve()
+        # The copies' stream was current only while each copy was issued.
+        assert torch.cuda.current_stream() == stream
+        assert torch.cuda.current_device() == device
+        return result, result.stats["peak_mem_bytes"] - base
+
+    r, peak = solve_above_base()
+    cpu = _cpu_cells(spec)
+    assert sorted(r.cells) == sorted(cpu)
+    for L, c in r.cells.items():
+        assert torch.from_numpy(c).is_pinned(), L
+        assert c.tobytes() == cpu[L].tobytes(), L
+    empty = torch.empty
+
+    def no_pin(*a, **k):
+        if k.get("pin_memory"):
+            raise RuntimeError("CUDA error: out of memory")
+        return empty(*a, **k)
+
+    monkeypatch.setattr(dense.torch, "empty", no_pin)
+    pageable, pageable_peak = solve_above_base()
+    monkeypatch.undo()
+    assert not torch.from_numpy(pageable.cells[0]).is_pinned()
+    t = r._tables
+    sizes = [len(t.profiles[L]) * t.class_size[L]
+             for L in range(t.ncells + 1)]
+    two = max(a + b for a, b in zip(sizes, sizes[1:]))
+    print(f"\n{spec}: peak {peak} B, pageable {pageable_peak} B, two "
+          f"widest adjacent levels {two} B")
+    assert two <= peak == pageable_peak
+
+
 def test_a_kept_result_is_never_overwritten():
-    """One result held while later solves run: its cells are pinned and
-    stay byte for byte as they were; the later solves' cells are the
-    same (the solve is deterministic) in blocks of their own."""
+    """One result held while later solves run, each later solver's copies
+    on a copy stream of its own: the kept cells are the CPU solve's,
+    pinned, and stay byte for byte as they were; the later solves' cells
+    are the same in blocks of their own."""
     _need_card()
     from gamesmanmpi_tpu_torch.games import get_game
     from gamesmanmpi_tpu_torch.solve.dense import DenseSolver
@@ -198,6 +289,9 @@ def test_a_kept_result_is_never_overwritten():
     kept = DenseSolver(game).solve()
     before = {L: c.copy() for L, c in kept.cells.items()}
     assert len(before) == 26
+    cpu = _cpu_cells("connect4:w=5,h=5")
+    for L, c in before.items():
+        assert c.tobytes() == cpu[L].tobytes(), L
     for _ in range(2):
         later = DenseSolver(game).solve()
         for L, c in later.cells.items():
